@@ -1,0 +1,62 @@
+"""Rotation primitives, batched over leading dims; counterpart of
+`labelany3d_tpu/geometry/transforms.py` (what the box fit uses)."""
+
+from __future__ import annotations
+
+import torch
+
+from labelany3d_tpu_torch.utils.precision import f32_precision
+
+_EPS = 1e-12
+
+
+def normalize(v: torch.Tensor, eps: float = _EPS) -> torch.Tensor:
+    """Normalize along the last axis; zero vectors pass through."""
+    norm = torch.linalg.norm(v, dim=-1, keepdim=True)
+    return torch.where(norm > eps, v / norm.clamp_min(eps), v)
+
+
+def rotate_y(yaw: torch.Tensor) -> torch.Tensor:
+    """Rotation about +y; `yaw` (...) -> (..., 3, 3)."""
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    zero, one = torch.zeros_like(c), torch.ones_like(c)
+    rows = [
+        torch.stack([c, zero, s], dim=-1),
+        torch.stack([zero, one, zero], dim=-1),
+        torch.stack([-s, zero, c], dim=-1),
+    ]
+    return torch.stack(rows, dim=-2)
+
+
+def skew(v: torch.Tensor) -> torch.Tensor:
+    """Cross-product matrix of (..., 3) vectors."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    zero = torch.zeros_like(x)
+    rows = [
+        torch.stack([zero, -z, y], dim=-1),
+        torch.stack([z, zero, -x], dim=-1),
+        torch.stack([-y, x, zero], dim=-1),
+    ]
+    return torch.stack(rows, dim=-2)
+
+
+@f32_precision
+def rotation_matrix_from_vectors(vec1: torch.Tensor, vec2: torch.Tensor) -> torch.Tensor:
+    """Rotation mapping unit(vec1) onto unit(vec2) (Rodrigues), with the
+    parallel (identity) and anti-parallel (180 degrees about a stable
+    orthogonal axis) cases handled exactly."""
+    a = normalize(vec1.float())
+    b = normalize(vec2.float())
+    axis = torch.linalg.cross(a, b, dim=-1)
+    cos_theta = (a * b).sum(-1)[..., None, None]
+    s2 = (axis * axis).sum(-1)[..., None, None]
+    k = skew(axis)
+    eye = torch.eye(3, dtype=a.dtype, device=a.device).expand(k.shape)
+    general = eye + k + (k @ k) / (1.0 + cos_theta).clamp_min(_EPS)
+    ex = torch.tensor([1.0, 0.0, 0.0], device=a.device).expand(a.shape)
+    ey = torch.tensor([0.0, 1.0, 0.0], device=a.device).expand(a.shape)
+    helper = torch.where(a[..., 0:1].abs() < 0.9, ex, ey)
+    ortho = normalize(torch.linalg.cross(a, helper, dim=-1))
+    flip = 2.0 * ortho[..., :, None] * ortho[..., None, :] - torch.eye(3, device=a.device)
+    degenerate = s2 < 1e-10
+    return torch.where(degenerate, torch.where(cos_theta < 0.0, flip, eye), general)

@@ -1,0 +1,106 @@
+"""Parameters for the port's models: random init, and Flax trees -> state_dict.
+
+`init_params_` gives a model the distributions Flax's `init` gives the JAX
+package's modules (lecun-normal kernels, zero biases, unit LayerNorm scales,
+N(0, 0.02) position embeddings), drawn from an explicit `torch.Generator`.
+The streams differ from `jax.random`, so parity tests carry the JAX
+package's own parameters across with `flax_to_state_dict` instead.
+
+Mapping rules (Flax leaf -> PyTorch parameter), module paths joined by '.':
+  Dense `kernel` (in, out)     -> `weight` (out, in)
+  Conv  `kernel` (kh, kw, I, O) -> `weight` (O, I, kh, kw)
+  LayerNorm `scale`            -> `weight`
+  any other leaf (`bias`, `gamma`, `pos_embed`, `cls_token`, ...) keeps its name.
+Any key missing from either side, or any shape mismatch, raises.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from labelany3d_tpu_torch.models.layers import LayerNorm32
+
+_TRUNC = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
+
+
+def _lecun_normal_(t: torch.Tensor, gen: torch.Generator) -> None:
+    """Flax `lecun_normal`: truncated normal on [-2, 2], variance 1/fan_in."""
+    fan_in = t[0].numel()
+    std = math.sqrt(1.0 / fan_in) / _TRUNC
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    u = torch.empty(t.shape, device=t.device).uniform_(lo, 1.0 - lo, generator=gen)
+    t.copy_(torch.erfinv(2.0 * u - 1.0) * (math.sqrt(2.0) * std))
+
+
+@torch.no_grad()
+def init_params_(model: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Random-initialise every parameter of `model` in place."""
+    for mod in model.modules():
+        if isinstance(mod, (nn.Linear, nn.Conv2d)):
+            _lecun_normal_(mod.weight, gen)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "pos_embed":
+            p.normal_(0.0, 0.02, generator=gen)
+        elif leaf == "cls_token":
+            p.zero_()
+    return model
+
+
+@torch.no_grad()
+def cast_inference_params_(model: nn.Module, dtype: torch.dtype = torch.bfloat16) -> nn.Module:
+    """Cast the parameters the JAX backend casts (Flax leaves named `kernel`
+    or `bias`: Dense/Conv weights and biases, LayerNorm biases) to `dtype`
+    once; LayerNorm scales, LayerScale gammas and embeddings stay f32.
+    Layers cast to their compute dtype per call, so this only saves work."""
+    for mod in model.modules():
+        if isinstance(mod, (nn.Linear, nn.Conv2d)):
+            mod.weight.data = mod.weight.data.to(dtype)
+            if mod.bias is not None:
+                mod.bias.data = mod.bias.data.to(dtype)
+        elif isinstance(mod, LayerNorm32):
+            mod.bias.data = mod.bias.data.to(dtype)
+    return model
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            yield from _flatten(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), v
+
+
+def flax_to_state_dict(params, model: nn.Module) -> dict[str, torch.Tensor]:
+    """Convert a Flax parameter tree (nested dict of arrays) into `model`'s
+    state_dict; raises on any missing or unused key or shape mismatch."""
+    target = model.state_dict()
+    out: dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(params):
+        *mods, leaf = path
+        t = torch.from_numpy(np.array(np.asarray(arr, np.float32)))
+        if leaf == "kernel":
+            t = t.t() if t.ndim == 2 else t.permute(3, 2, 0, 1)
+            leaf = "weight"
+        elif leaf == "scale":
+            leaf = "weight"
+        key = ".".join([*mods, leaf])
+        if key not in target:
+            raise KeyError(f"unused Flax parameter {'/'.join(path)} (no {key} in model)")
+        if tuple(t.shape) != tuple(target[key].shape):
+            raise ValueError(f"{key}: Flax shape {tuple(t.shape)} != model shape "
+                             f"{tuple(target[key].shape)}")
+        out[key] = t.contiguous().to(target[key].dtype)
+    missing = sorted(set(target) - set(out))
+    if missing:
+        raise KeyError(f"model parameters missing from the Flax tree: {missing}")
+    return out

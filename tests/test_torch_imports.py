@@ -1,0 +1,61 @@
+"""The port's import rule and device default.
+
+`labelany3d_tpu_torch` imports torch and never JAX, Flax or the JAX package.
+The check runs in a subprocess because `tests/conftest.py` imports JAX into
+this one. A source scan backs it up for modules the import does not reach.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+PKG = pathlib.Path(__file__).resolve().parent.parent / "labelany3d_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "labelany3d_tpu")
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys\n"
+        "import labelany3d_tpu_torch\n"
+        "import labelany3d_tpu_torch.pipeline.runner\n"
+        "import labelany3d_tpu_torch.pipeline.stages\n"
+        "import labelany3d_tpu_torch.pipeline.backends\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def _imports(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_source_scan_finds_no_forbidden_import():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) > 20
+    bad = [(f.name, m) for f in files for m in _imports(f) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    from labelany3d_tpu_torch.pipeline.backends import FakeDepthBackend, make_depth
+    from labelany3d_tpu_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_depth("tiny_test")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FakeDepthBackend([[[1.0]]], [[1, 0, 0], [0, 1, 0], [0, 0, 1]])
+    assert resolve_device("cpu").type == "cpu"
+    with pytest.raises(NotImplementedError):
+        make_depth("vitl_reference", device="cpu")
