@@ -3,13 +3,21 @@
 
     python3 chip_smoke.py
 
-builds the port's CUDA kernels from `labelany3d_tpu_torch/csrc/` with nvcc,
-holds each against its plain PyTorch version on the card, checks the fused
-labeling program on the card against the CPU, and drives the `fast` route
-(MoGe + DepthPro with ViT-L backbones at the `large` preset, random weights
-from a seed) over 16 synthetic 512x512 images in two batches of 8. Each
-phase prints one line; any failure exits non-zero. Without CUDA, or without
-the rest of the repository beside it, it exits non-zero and prints no result.
+builds the port's four CUDA kernels from `labelany3d_tpu_torch/csrc/` with
+nvcc (one process per source, all at once), holds each against its plain
+PyTorch version on the card, checks the fused labeling program on the card
+against the CPU, and drives two paths with random weights from a seed:
+
+  * the `fast` route (MoGe + DepthPro with ViT-L backbones at the `large`
+    preset) over 16 synthetic 512x512 images in two batches of 8;
+  * the registration chain depth -> crops -> reconstruction -> layout ->
+    export over 8 synthetic 512x512 images with 4 objects each, at the
+    `large` depth preset, the full-width `MatcherConfig()` matcher (ViT-L
+    encoder, 12-block decoder of width 768) and `bbox_method=minarea_pallas`.
+
+Each phase prints one line; any failure exits non-zero. Without CUDA, or
+without the rest of the repository beside it, it exits non-zero and prints
+no result.
 
 The line before the last is the kernel table (JSON); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -23,6 +31,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -34,9 +43,24 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 # unmasked, gives a relative L2 error above 2e-2 at both path shapes.
 K1_MAX_ABS_TOL = 5e-3
 K1_REL_TOL = 5e-3          # ||out - ref||_2 / ||ref||_2 over the real rows
+# K2 against its fp32 plain version on the same bf16 inputs: the same
+# reasoning and tolerances as K1.
+K2_MAX_ABS_TOL = 5e-3
+K2_REL_TOL = 5e-3
+# K3 against its plain version on the same bf16-rounded operands: both sum
+# 24 products of unit-norm descriptors in fp32, in another order, so the
+# best scores agree to a few ulp of 1; indices must agree wherever the
+# plain version's best beats its runner-up by more than the score tolerance.
+K3_SCORE_TOL = 1e-5
+# K4: the same fp32 arithmetic per angle; the yaw must agree wherever the
+# best area beats the runner-up by more than this relative margin.
+K4_REL_TOL = 1e-6
+H100_F32_FLOPS = 67e12     # fp32 outside the tensor cores, H100 SXM data sheet
 BOX_TOL = 1e-3             # geometry in f32 with TF32 off, sums reordered
 IMAGE_HW = (512, 512)
 N_IMAGES = 16
+N_REG_IMAGES = 8           # registration chain: one depth batch of 8
+REG_INSTANCES = 4
 
 
 def _say(phase: str, **kw) -> None:
@@ -102,6 +126,165 @@ def check_attention(shape: dict, seed: int, nan_pad: bool = False) -> dict:
         res["library_ms"] = time_cuda(
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask))
         res["bound_ms"], res["bound_by"] = attention_bound_ms(b, n_pad, n_real, heads, d)
+    return res
+
+
+def bound(nbytes: float, flops: float, peak_flops: float = H100_BF16_FLOPS):
+    """Least time (ms) on an H100 SXM and what sets it."""
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_flash(b: int, sq: int, sk: int, seed: int, heads: int = 12, d: int = 64,
+                pad_keys: int = 0, strided: bool = False, timed: bool = False) -> dict:
+    """K2 against its plain version on the card. `pad_keys` > 0 masks the
+    last keys through segment ids (self-attention) and fills every pad row
+    of q, k and v with NaN; `strided` reads q from a (B, H, S, D) tensor
+    through its transposed view."""
+    import torch
+    import torch.nn.functional as F
+
+    from labelany3d_tpu_torch.ops import attention as att
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(s):
+        return torch.randn(b, s, heads, d, device="cuda", generator=g).bfloat16()
+
+    q = rand(sq)
+    if strided:
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    k, v = rand(sk), rand(sk)
+    seg, real = None, slice(None)
+    if pad_keys:
+        seg = torch.zeros(b, sk, dtype=torch.int32, device="cuda")
+        seg[:, sk - pad_keys:] = 1
+        for t in (q, k, v):
+            t[:, sk - pad_keys:] = float("nan")
+        real = slice(0, sk - pad_keys)
+    out = att.flash_sdpa(q, k, v, seg)
+    ref = att.flash_sdpa_reference(q.float(), k.float(), v.float(), seg)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref)[:, real]
+    res = {"max_abs_err": float(diff.abs().max()),
+           "rel_err": float(diff.norm() / ref[:, real].norm()),
+           "finite": bool(torch.isfinite(out[:, real]).all())}
+    if timed:
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        res["ms"] = time_cuda(lambda: att.flash_sdpa(q, k, v))
+        res["plain_ms"] = time_cuda(lambda: att.flash_sdpa_reference(q, k, v), iters=5)
+        res["library_ms"] = time_cuda(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        # q, k, v read and the output written once (bf16); QK^T and PV.
+        res["bound_ms"], res["bound_by"] = bound(2 * b * heads * d * (2 * sq + 2 * sk),
+                                                 4 * b * heads * sq * sk * d)
+    return res
+
+
+def check_nn(pairs: int, s: int, n: int, seed: int, precision: str,
+             n_real: int | None = None, timed: bool = False, c: int = 24) -> dict:
+    """K3 against its plain version on the same bf16-rounded operands:
+    unit-norm descriptors, queries (pairs, s, c) against banks (pairs, n, c).
+    With `n_real`, the bank rows at and beyond it hold garbage (NaN and
+    1e30). `library_ms` (`(q @ bank.T).max(-1)` in bf16, two calls) is timed
+    on one pair: at more, its score matrix outgrows the card."""
+    import torch
+    import torch.nn.functional as F
+
+    from labelany3d_tpu_torch.ops import reciprocal_nn as rnn
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = F.normalize(torch.randn(pairs, s, c, device="cuda", generator=g), dim=-1)
+    bank = F.normalize(torch.randn(pairs, n, c, device="cuda", generator=g), dim=-1)
+    nr = n if n_real is None else n_real
+    bank_p, _ = rnn.pad_bank_for_nn(bank)
+    if n_real is not None:
+        bank_p[:, nr::2] = float("nan")
+        bank_p[:, nr + 1::2] = 1e30
+    idx, best = rnn.nn_argmax(q, bank_p, n_real=nr, precision=precision)
+    ref_idx, ref_best = rnn.nn_argmax_reference(q, bank_p, n_real=nr, precision=precision)
+    torch.cuda.synchronize()
+
+    def score_at(i):
+        """The score of bank rows `i` (P, S) in fp64 sums of the rounded
+        operands the plain version uses."""
+        rows = bank.gather(1, i.long()[..., None].expand(-1, -1, c)).double()
+        qd = q.double()
+        if precision == "bf16":
+            return (qd.bfloat16().double() * rows.bfloat16().double()).sum(-1)
+        qh, bh = qd.float().bfloat16().double(), rows.float().bfloat16().double()
+        ql = (qd.float() - qh.float()).bfloat16().double()
+        bl = (rows.float() - bh.float()).bfloat16().double()
+        return (qh * bh + qh * bl + ql * bh).sum(-1)
+
+    differ = idx != ref_idx
+    # Where the indices differ, the kernel's row must score within the
+    # tolerance of the plain best: the top two were that close.
+    gap = (ref_best.double() - score_at(idx))[differ]
+    res = {"max_abs_err": float((best - ref_best).abs().max()),
+           "idx_differ": int(differ.sum()),
+           "max_gap_where_differ": float(gap.abs().max()) if differ.any() else 0.0,
+           "in_range": bool(((idx >= 0) & (idx < nr)).all())}
+    res["ok"] = (res["in_range"] and res["max_abs_err"] <= K3_SCORE_TOL
+                 and res["max_gap_where_differ"] <= K3_SCORE_TOL)
+    if timed:
+        res["ms"] = time_cuda(lambda: rnn.nn_argmax(q, bank_p, n_real=nr,
+                                                    precision=precision))
+        res["plain_ms"] = time_cuda(lambda: rnn.nn_argmax_reference(
+            q, bank_p, n_real=nr, precision=precision), iters=3, warmup=1)
+        res["library_ms"] = None
+        if pairs == 1:
+            qb, bb = q[0].bfloat16(), bank[0].bfloat16()
+            res["library_ms"] = time_cuda(lambda: (qb @ bb.T).max(1))
+        # Queries and banks read once (fp32, c wide), indices and scores
+        # written; 2*s*n*c operations per pair and operand pass (three
+        # passes for bf16x3).
+        passes = 1 if precision == "bf16" else 3
+        res["bound_ms"], res["bound_by"] = bound(pairs * (4 * c * (s + nr) + 8 * s),
+                                                 pairs * passes * 2 * s * nr * c)
+    return res
+
+
+def check_yaw(i: int, n: int, seed: int, timed: bool = False, num_angles: int = 512) -> dict:
+    """K4 against its plain version: random point sets and masks."""
+    import math
+
+    import torch
+
+    from labelany3d_tpu_torch.ops import boxfit_yaw as by
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pts = torch.randn(i, n, 2, device="cuda", generator=g) * torch.tensor(
+        [2.0, 0.5], device="cuda")
+    pts = pts @ torch.linalg.qr(torch.randn(i, 2, 2, device="cuda", generator=g))[0]
+    valid = torch.rand(i, n, device="cuda", generator=g) > 0.3
+    valid[0] = False  # an instance without points
+    yaw = by.yaw_minarea(pts, valid, num_angles)
+    ref = by.yaw_minarea_reference(pts, valid, num_angles)
+    area = by.footprint_areas(pts, valid, num_angles)
+    torch.cuda.synchronize()
+    step = (math.pi / 2.0) / num_angles
+    k_idx = torch.round(yaw / step).long()
+    top2 = area.topk(2, dim=-1, largest=False).values
+    # An instance without valid points has infinite area at every angle;
+    # both versions then return the first angle.
+    finite = torch.isfinite(top2[:, 0])
+    clear = ~finite | ((top2[:, 1] - top2[:, 0]) > K4_REL_TOL * top2[:, 0].abs())
+    at_k = area.gather(1, k_idx[:, None])[:, 0]
+    rel = torch.where(finite, (at_k - top2[:, 0]) / top2[:, 0].abs().clamp_min(1e-30),
+                      torch.zeros_like(at_k))
+    res = {"yaw_equal_where_clear": bool((yaw == ref)[clear].all()),
+           "clear_rows": int(clear.sum()),
+           "max_rel_area_excess": float(rel[~clear].max()) if (~clear).any() else 0.0,
+           "max_abs_err": float((yaw - ref).abs().max())}
+    res["ok"] = res["yaw_equal_where_clear"] and res["max_rel_area_excess"] <= K4_REL_TOL
+    if timed:
+        res["ms"] = time_cuda(lambda: by.yaw_minarea(pts, valid, num_angles))
+        res["plain_ms"] = time_cuda(lambda: by.yaw_minarea_reference(pts, valid, num_angles))
+        res["library_ms"] = None
+        # Points (fp32 pairs) and the mask (uint8) read once, yaws written;
+        # per point and angle 4 multiplies, 2 adds and 4 min/max in fp32.
+        res["bound_ms"], res["bound_by"] = bound(9 * i * n + 4 * i, 10 * i * n * num_angles,
+                                                 H100_F32_FLOPS)
     return res
 
 
@@ -209,15 +392,32 @@ def check_labeling(device: str, b: int = 8, hw=IMAGE_HW, n_inst: int = 16,
             "ok_equal": bool(torch.equal(b_dev.ok, ok)), "s": dt}
 
 
-def check_scene_outputs(save_dir: str, loader) -> tuple[set, set]:
-    """Every scene has its artifacts with finite values of the right shape.
+F16_MAX = 65504.0  # the layout stage rounds box vertices to float16, as the reference
+
+
+def f16_overflow(box: dict) -> bool:
+    """True when a box's vertices are non-finite only because the float16
+    rounding of vertices (`geometry/boxfit.py`, src/util_3dbox.py:165)
+    overflowed: its unrounded centre and dimensions are finite and reach past
+    +-65504."""
+    import numpy as np
+
+    c, d = np.asarray(box["center_cam"]), np.asarray(box["dimensions"])
+    return bool(np.isfinite(c).all() and np.isfinite(d).all()
+                and np.linalg.norm(c) + 0.5 * np.linalg.norm(d) > F16_MAX)
+
+
+def check_scene_outputs(save_dir: str, loader, f16_overflow_ok: bool = False) -> tuple:
+    """Every scene has its artifacts with finite values of the right shape
+    (with `f16_overflow_ok`, a box may instead be a float16 overflow).
     Returns the scenes that have boxes and the scenes COCO3D lists, which
-    must be the same: export skips exactly the scenes without boxes."""
+    must be the same (export skips exactly the scenes without boxes), and
+    the number of overflowed boxes."""
     import numpy as np
 
     from labelany3d_tpu_torch.pipeline.scene import SceneDir, scene_dir_name
 
-    with_boxes = set()
+    with_boxes, overflowed = set(), 0
     for info in loader.images:
         name = scene_dir_name(info["file_name"])
         sd = SceneDir(os.path.join(save_dir, "val", name))
@@ -228,23 +428,31 @@ def check_scene_outputs(save_dir: str, loader) -> tuple[set, set]:
         if depth.shape != (info["height"], info["width"]) or not np.isfinite(depth).all():
             raise RuntimeError(f"bad depth map in {sd.root}")
         boxes = sd.read_bbox3d()
-        if any(not np.isfinite(b["bbox3D_cam"]).all() or np.shape(b["bbox3D_cam"]) != (8, 3)
-               for b in boxes):
-            raise RuntimeError(f"bad boxes in {sd.root}")
+        for b in boxes:
+            if np.shape(b["bbox3D_cam"]) != (8, 3):
+                raise RuntimeError(f"bad box shape in {sd.root}")
+            if not np.isfinite(b["bbox3D_cam"]).all():
+                if not (f16_overflow_ok and f16_overflow(b)):
+                    raise RuntimeError(f"bad boxes in {sd.root}")
+                overflowed += 1
         if boxes:
             with_boxes.add(name)
     with open(os.path.join(save_dir, "COCO3D_val.json")) as f:
         listed = {os.path.basename(im["file_path"]).rsplit(".", 1)[0]
                   for im in json.load(f)["images"]}
-    return with_boxes, listed
+    return with_boxes, listed, overflowed
 
 
-def profile_fast(run) -> dict:
-    """One `fast` pass under torch.profiler: the summed time of the device's
-    own events (kernels, copies), the ones that take most of it, and the
-    host ops with the most self CPU time. Host ops that launch kernels also
-    carry device time in `key_averages`; only device events are summed, so
-    nothing is counted twice."""
+KERNEL_NAMES = {"k1": "packed_attention", "k2": "flash_attention", "k3": "nn_argmax",
+                "k4": "yaw_minarea"}
+
+
+def profile_pass(run) -> dict:
+    """One pass under torch.profiler: the summed time of the device's own
+    events (kernels, copies), each port kernel's share, the events that take
+    most of it, and the host ops with the most self CPU time. Host ops that
+    launch kernels also carry device time in `key_averages`; only device
+    events are summed, so nothing is counted twice."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -261,10 +469,154 @@ def profile_fast(run) -> dict:
             host.append((e.self_cpu_time_total / 1e3, e.key, e.count))
     dev.sort(reverse=True)
     host.sort(reverse=True)
-    return {"wall_ms": wall * 1e3, "device_ms": sum(r[0] for r in dev),
-            "k1_ms": sum(r[0] for r in dev if "packed_attention" in r[1]),
-            "top_device": [(round(ms, 3), name[:60], n) for ms, name, n in dev[:10]],
-            "top_host": [(round(ms, 3), name[:60], n) for ms, name, n in host[:8]]}
+    out = {"wall_ms": wall * 1e3, "device_ms": sum(r[0] for r in dev),
+           "top_device": [(round(ms, 3), name[:60], n) for ms, name, n in dev[:10]],
+           "top_host": [(round(ms, 3), name[:60], n) for ms, name, n in host[:8]]}
+    for k, sub in KERNEL_NAMES.items():
+        out[f"{k}_ms"] = sum(r[0] for r in dev if sub in r[1])
+    return out
+
+
+def check_registration_outputs(save_dir: str, loader) -> tuple:
+    """Every scene of the registration chain has its object meshes, a
+    full-scene mesh and boxes that are finite or float16 overflows: with
+    random weights, random descriptors pass PnP for some objects, and the
+    depth models' maps, mostly the 10000 sentinel, then give scales near
+    1e4. Returns what `check_scene_outputs` returns."""
+    from labelany3d_tpu_torch.pipeline.scene import SceneDir, scene_dir_name
+
+    for info in loader.images:
+        sd = SceneDir(os.path.join(save_dir, "val", scene_dir_name(info["file_name"])))
+        if not list((sd.root / "object_space").glob("*.glb")):
+            raise RuntimeError(f"no object meshes in {sd.root}")
+        if not (sd.root / "reconstruction" / "full_scene.glb").exists():
+            raise RuntimeError(f"no full_scene.glb in {sd.root}")
+    return check_scene_outputs(save_dir, loader, f16_overflow_ok=True)
+
+
+def run_registration(cfg_kw: dict, tmp: str, seed: int = 3) -> dict:
+    """The registration chain on the card: cold pass (models built, first
+    launches; launch counts read here), warm pass (timed), traced pass."""
+    import torch
+
+    from labelany3d_tpu_torch.ops import attention as att
+    from labelany3d_tpu_torch.ops import boxfit_yaw as by
+    from labelany3d_tpu_torch.ops import reciprocal_nn as rnn
+    from labelany3d_tpu_torch.pipeline.backends import TorchMatcherBackend, default_registry
+    from labelany3d_tpu_torch.pipeline.config import PipelineConfig
+    from labelany3d_tpu_torch.pipeline.runner import run_stages
+    from labelany3d_tpu_torch.pipeline.stages.common import ArrayImageSource
+    from labelany3d_tpu_torch.utils.profiling import StageTimer
+
+    cfg = PipelineConfig(bbox_method="minarea_pallas", **cfg_kw)
+    loader = SyntheticLoader(N_REG_IMAGES, IMAGE_HW, seed=seed, min_inst=REG_INSTANCES,
+                             max_inst=REG_INSTANCES)
+    source = ArrayImageSource(loader.pixels)
+    backend = default_registry().get("depth", preset="large", pin_hw=cfg.bucket_sizes()[0],
+                                     device="cuda", seed=cfg.seed)
+    matcher = TorchMatcherBackend(tiny=False, seed=cfg.seed, device="cuda")
+    chain = ("depth", "crops", "reconstruction", "layout", "export")
+    counters = {"k1": att.KERNEL_LAUNCHES, "k2": att.FLASH_LAUNCHES,
+                "k3": rnn.KERNEL_LAUNCHES, "k4": by.KERNEL_LAUNCHES}
+    plains = {"k1": att.PLAIN_CALLS, "k2": att.FLASH_PLAIN_CALLS, "k3": rnn.PLAIN_CALLS,
+              "k4": by.PLAIN_CALLS}
+
+    def run(out_dir, timer=None, stages=None):
+        for name in chain:
+            run_stages(name, cfg, loader, source, out_dir, "val", 0, N_REG_IMAGES,
+                       backend=backend, matcher=matcher, device="cuda", timer=timer,
+                       stages=stages)
+        torch.cuda.synchronize()
+
+    res = {}
+    for c in (*counters.values(), *plains.values()):
+        c.reset()
+    matcher.forwards = 0
+    torch.cuda.reset_peak_memory_stats()
+    stages: dict = {}
+    t0 = time.perf_counter()
+    cold = os.path.join(tmp, "reg_cold")
+    run(cold, stages=stages)
+    res["cold_s"] = time.perf_counter() - t0
+    res["launches"] = {k: c.count for k, c in counters.items()}
+    res["plain_calls"] = {k: c.count for k, c in plains.items()}
+    res["forwards"] = matcher.forwards
+    res["failures"] = list(stages["layout"].failures)
+    with_boxes, listed, res["f16_overflow_boxes"] = check_registration_outputs(cold, loader)
+    res["scenes_with_boxes"], res["coco3d_images"] = len(with_boxes), len(listed)
+    from labelany3d_tpu_torch.pipeline.scene import scene_dir_name
+
+    placed = sum((Path(cold) / "val" / scene_dir_name(i["file_name"]) / "reconstruction"
+                  / "full_scene.glb").exists() for i in loader.images)
+    # One MoGe and one DepthPro forward per depth batch.
+    depth_k1 = (-(-N_REG_IMAGES // cfg.batch_size)
+                * (backend.moge_cfg.backbone.depth + backend.dp_cfg.backbone.depth))
+    enc = matcher.cfg.encoder.depth
+    dec = matcher.cfg.dec_depth
+    res["want"] = {"k1": depth_k1 + enc * res["forwards"], "k2": 4 * dec * res["forwards"],
+                   "k3": 12 * res["forwards"], "k4": placed}
+    res["ok"] = (res["launches"] == res["want"] and not any(res["plain_calls"].values())
+                 and not res["failures"] and res["forwards"] > 0
+                 and with_boxes == listed and len(with_boxes) == N_REG_IMAGES)
+
+    timer = StageTimer()
+    t0 = time.perf_counter()
+    run(os.path.join(tmp, "reg_warm"), timer=timer)
+    warm_s = time.perf_counter() - t0
+    res["warm_s"] = warm_s
+    res["images_per_s"] = N_REG_IMAGES / warm_s
+    res["stage_s"] = {k: timer.stats[k].total_seconds for k in chain}
+    res["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile_pass(lambda: run(os.path.join(tmp, "reg_prof")))
+    res["profile"] = prof
+    res["idle_share"] = (1.0 - prof["device_ms"] / (warm_s * 1e3) if prof["device_ms"] > 0
+                         else "not measured")
+    return res
+
+
+def kernel_checks() -> dict:
+    """K2, K3 and K4 against their plain versions at the registration
+    path's shapes; raises SystemExit on any disagreement. Returns the timed
+    result of each kernel."""
+    # K2: the decoder's self-attention over 4 objects x 8 views, a cross
+    # shape with Sq != Sk read through strides, and segment ids with NaN pads.
+    k2 = {"path": check_flash(32, 1296, 1296, seed=11, timed=True),
+          "cross": check_flash(8, 1296, 777, seed=12, strided=True),
+          "segment_ids": check_flash(4, 1296, 1296, seed=13, pad_keys=101)}
+    for name, r in k2.items():
+        _say(f"K2:{name}", **r, max_abs_tol=K2_MAX_ABS_TOL, rel_tol=K2_REL_TOL)
+    bad = [n for n, r in k2.items() if not r["finite"] or r["max_abs_err"] > K2_MAX_ABS_TOL
+           or r["rel_err"] > K2_REL_TOL]
+    if bad:
+        raise SystemExit(f"K2 disagrees with its plain version: {bad}")
+
+    # K3: round 1 of a stage-A matcher forward (32 pairs, 4096 queries each,
+    # against 512^2 banks), a compacted round (1024 queries), one pair (to
+    # time the library yardstick), and a pre-padded bank with garbage beyond
+    # n_real.
+    n = IMAGE_HW[0] * IMAGE_HW[1]
+    pairs = REG_INSTANCES * 8
+    k3 = {}
+    for prec in ("bf16", "bf16x3"):
+        k3[f"path_{prec}"] = check_nn(pairs, 4096, n, seed=21, precision=prec, timed=True)
+        k3[f"compact_{prec}"] = check_nn(pairs, 1024, n, seed=22, precision=prec)
+        k3[f"one_pair_{prec}"] = check_nn(1, 4096, n, seed=24, precision=prec, timed=True)
+        k3[f"padded_{prec}"] = check_nn(2, 1024, n, seed=23, precision=prec, n_real=n - 37)
+    for name, r in k3.items():
+        _say(f"K3:{name}", **r, score_tol=K3_SCORE_TOL)
+    bad = [name for name, r in k3.items() if not r["ok"]]
+    if bad:
+        raise SystemExit(f"K3 disagrees with its plain version: {bad}")
+
+    # K4: the layout stage's box fit (16 slots x 500 samples) and the fast
+    # route's (8 images x 16 instances, 512 points).
+    k4 = {"layout": check_yaw(16, 500, seed=31, timed=True), "fast": check_yaw(128, 512, seed=32)}
+    for name, r in k4.items():
+        _say(f"K4:{name}", **r, rel_tol=K4_REL_TOL)
+    bad = [name for name, r in k4.items() if not r["ok"]]
+    if bad:
+        raise SystemExit(f"K4 disagrees with its plain version: {bad}")
+    return {"k2": k2, "k3": k3, "k4": k4}
 
 
 def main() -> int:
@@ -297,14 +649,19 @@ def main() -> int:
 
     # 2. Kernel build: one nvcc per source, all started together.
     t0 = time.perf_counter()
-    log = build.build("packed_attention", verbose=True)
-    ptxas = " | ".join(ln.strip() for ln in log.splitlines()
-                       if "registers" in ln or "spill" in ln)
-    _say("build", s=time.perf_counter() - t0, ptxas=json.dumps(ptxas))
+    logs = build.build_all(verbose=True)
+    build_s = time.perf_counter() - t0
+    for name, log in logs.items():
+        ptxas = " | ".join(ln.strip() for ln in log.splitlines()
+                           if "registers" in ln or "spill" in ln)
+        _say(f"build:{name}", ptxas=json.dumps(ptxas))
+    _say("build", s=build_s, kernels=len(logs))
 
-    # 3. K1 against its plain version at both path shapes, and with NaN pads.
+    # 3. K1 against its plain version at its path shapes (MoGe, DepthPro, the
+    # matcher encoder over 4 references + 32 views), and with NaN pads.
     shapes = {"moge": dict(b=8, n_pad=1408, n_real=1297, heads=16, d=64),
-              "depth_pro": dict(b=40, n_pad=384, n_real=325, heads=16, d=64)}
+              "depth_pro": dict(b=40, n_pad=384, n_real=325, heads=16, d=64),
+              "matcher": dict(b=36, n_pad=1408, n_real=1297, heads=16, d=64)}
     k1 = {}
     for i, (name, shape) in enumerate(shapes.items()):
         k1[name] = check_attention(shape, seed=i)
@@ -317,13 +674,16 @@ def main() -> int:
     if failures:
         raise SystemExit(f"K1 disagrees with its plain version: {failures}")
 
-    # 4. Fused labeling program on the card against the CPU.
+    # 4. K2, K3, K4 against their plain versions.
+    kc = kernel_checks()
+
+    # 5. Fused labeling program on the card against the CPU.
     lab = check_labeling("cuda")
     _say("labeling", **lab, tol=BOX_TOL)
     if not lab["ok_equal"] or lab["box_err"] > BOX_TOL or lab["depth_rel_err"] > 1e-4:
         raise SystemExit("fused labeling on the card disagrees with the CPU")
 
-    # 5. The fast route at the large preset: 16 images, two batches of 8.
+    # 6. The fast route at the large preset: 16 images, two batches of 8.
     cfg = PipelineConfig()
     loader = SyntheticLoader(N_IMAGES, IMAGE_HW, seed=0)
     source = ArrayImageSource(loader.pixels)
@@ -340,7 +700,7 @@ def main() -> int:
         torch.cuda.synchronize()
         launches, plain = att.KERNEL_LAUNCHES.count, att.PLAIN_CALLS.count
         cold_s = time.perf_counter() - t0
-        with_boxes, listed = check_scene_outputs(cold, loader)
+        with_boxes, listed, _ = check_scene_outputs(cold, loader)
         _say("fast:cold", s=cold_s, k1_launches=launches, plain_calls=plain,
              scenes_with_boxes=len(with_boxes), coco3d_images=len(listed))
         # With random weights, whether a scene keeps any valid depth (and so
@@ -363,7 +723,7 @@ def main() -> int:
         _say("fast:warm", s=warm_s, images_per_s=N_IMAGES / warm_s,
              **stage_s, max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
 
-        prof = profile_fast(lambda: run_stages(
+        prof = profile_pass(lambda: run_stages(
             "fast", cfg, loader, source, os.path.join(tmp, "prof"), "val", 0, N_IMAGES,
             backend=backend, device="cuda"))
         # The profiler slows the host several-fold but not the device, so
@@ -375,19 +735,58 @@ def main() -> int:
              device_ms=prof["device_ms"], k1_device_ms=prof["k1_ms"],
              idle_share_of_warm_pass=idle, top_device=json.dumps(prof["top_device"]),
              top_host=json.dumps(prof["top_host"]))
+        del backend
+        torch.cuda.empty_cache()
 
-    m = k1["moge"]
-    table = {"kernels": [{
-        "name": "packed_attention", "route": "cuda",
-        "source": "labelany3d_tpu_torch/csrc/packed_attention.cu",
-        "replaces": "labelany3d_tpu/ops/attention.py:133",
-        "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
-        "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-        "bound_by": m["bound_by"], "library_ms": m["library_ms"],
-        "shape": "MoGe B=8 Npad=1408 n_real=1297 H=16 d=64",
-        "depth_pro": {k: k1["depth_pro"][k] for k in
-                      ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-    }]}
+        # 7. The registration chain: depth -> crops -> reconstruction ->
+        # layout -> export at the large preset, full-width matcher, K4 box fit.
+        reg = run_registration({}, tmp)
+        _say("registration:cold", s=reg["cold_s"], forwards=reg["forwards"],
+             launches=json.dumps(reg["launches"]), want=json.dumps(reg["want"]),
+             plain_calls=json.dumps(reg["plain_calls"]), failures=json.dumps(reg["failures"]),
+             scenes_with_boxes=reg["scenes_with_boxes"], coco3d_images=reg["coco3d_images"],
+             f16_overflow_boxes=reg["f16_overflow_boxes"])
+        p = reg["profile"]
+        _say("registration:warm", s=reg["warm_s"], images_per_s=reg["images_per_s"],
+             stage_s=json.dumps(reg["stage_s"]), max_memory_gb=reg["max_memory_gb"])
+        _say("registration:profile", traced_wall_ms=p["wall_ms"], device_ms=p["device_ms"],
+             **{f"{k}_device_ms": p[f"{k}_ms"] for k in KERNEL_NAMES},
+             idle_share_of_warm_pass=reg["idle_share"],
+             top_device=json.dumps(p["top_device"]), top_host=json.dumps(p["top_host"]))
+        if not reg["ok"]:
+            raise SystemExit("registration chain: launches, plain calls, failures or scene "
+                             "artifacts are not as required (see registration:cold)")
+
+    def row(name, source, replaces, launches, r, max_abs_err, **extra):
+        return {"name": name, "route": "cuda", "source": f"labelany3d_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err,
+                **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                **extra}
+
+    k2, k3, k4 = kc["k2"], kc["k3"], kc["k4"]
+    table = {"kernels": [
+        row("packed_attention", "packed_attention.cu", "labelany3d_tpu/ops/attention.py:133",
+            launches, k1["moge"], max(r["max_abs_err"] for r in k1.values()),
+            launches_registration=reg["launches"]["k1"],
+            shape="MoGe B=8 Npad=1408 n_real=1297 H=16 d=64",
+            **{name: {k: k1[name][k] for k in
+                      ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+               for name in ("depth_pro", "matcher")}),
+        row("flash_attention", "flash_attention.cu", "labelany3d_tpu/ops/attention.py:42",
+            reg["launches"]["k2"], k2["path"], max(r["max_abs_err"] for r in k2.values()),
+            shape="q, k, v (32, 1296, 12, 64) bf16"),
+        row("nn_argmax", "nn_argmax.cu", "labelany3d_tpu/ops/reciprocal_nn.py:29",
+            reg["launches"]["k3"], k3["path_bf16"], max(r["max_abs_err"] for r in k3.values()),
+            shape="query (32, 4096, 24) x bank (32, 262144, 24), bf16 operands",
+            library="none at 32 pairs (a 68 GB score matrix); one pair: see one_pair",
+            **{name: {k: k3[key][k] for k in
+                      ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+               for name, key in (("bf16x3", "path_bf16x3"), ("one_pair", "one_pair_bf16"),
+                                 ("one_pair_bf16x3", "one_pair_bf16x3"))}),
+        row("yaw_minarea", "yaw_minarea.cu", "labelany3d_tpu/ops/boxfit_pallas.py:54",
+            reg["launches"]["k4"], k4["layout"], max(r["max_abs_err"] for r in k4.values()),
+            shape="points (16, 500, 2), 512 angles"),
+    ]}
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,220 @@
+"""Minimal GLB (binary glTF 2.0) mesh IO and surface sampling.
+
+A copy of the vertex-coloured subset of `labelany3d_tpu/data/meshio.py`:
+
+  * GLB read: POSITION + indices (+ COLOR_0) of every mesh primitive, node
+    transforms applied;
+  * GLB write: one triangle mesh with optional vertex colours;
+  * area-weighted surface sampling (trimesh.sample equivalent).
+
+Textured GLBs (TEXCOORD_0 + a baseColor texture, TRELLIS's output) raise
+until TRELLIS is ported; PLY IO waits with `geometry/edges.py`.
+"""
+
+from __future__ import annotations
+
+import json
+import struct
+from dataclasses import dataclass, field
+
+import numpy as np
+
+_GLB_MAGIC = 0x46546C67
+_CHUNK_JSON = 0x4E4F534A
+_CHUNK_BIN = 0x004E4942
+
+_COMPONENT_SIZES = {5120: 1, 5121: 1, 5122: 2, 5123: 2, 5125: 4, 5126: 4}
+_COMPONENT_DTYPES = {
+    5120: np.int8, 5121: np.uint8, 5122: np.int16, 5123: np.uint16,
+    5125: np.uint32, 5126: np.float32,
+}
+_TYPE_COUNTS = {"SCALAR": 1, "VEC2": 2, "VEC3": 3, "VEC4": 4, "MAT4": 16}
+
+
+@dataclass
+class Mesh:
+    vertices: np.ndarray                       # (V, 3) float32
+    faces: np.ndarray                          # (F, 3) int32
+    colors: np.ndarray | None = None           # (V, 3|4) uint8 or float
+    metadata: dict = field(default_factory=dict)
+
+    def apply_transform(self, matrix: np.ndarray) -> "Mesh":
+        """4x4 homogeneous transform applied in place; returns self."""
+        m = np.asarray(matrix, np.float64)
+        self.vertices = (self.vertices @ m[:3, :3].T + m[:3, 3]).astype(np.float32)
+        return self
+
+    @property
+    def is_empty(self) -> bool:
+        return self.vertices.size == 0 or self.faces.size == 0
+
+    def face_areas(self) -> np.ndarray:
+        tri = self.vertices[self.faces]
+        return 0.5 * np.linalg.norm(
+            np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]), axis=-1)
+
+    def sample(self, count: int, seed: int = 0) -> np.ndarray:
+        """Area-weighted surface sampling, the same numpy draws as the JAX
+        package's `Mesh.sample`."""
+        areas = self.face_areas()
+        total = areas.sum()
+        rng = np.random.default_rng(seed)
+        if total <= 0:
+            idx = rng.integers(0, len(self.vertices), count)
+            return self.vertices[idx].astype(np.float32)
+        fidx = rng.choice(len(self.faces), size=count, p=areas / total)
+        tri = self.vertices[self.faces[fidx]]
+        u = rng.uniform(size=(count, 1))
+        v = rng.uniform(size=(count, 1))
+        flip = (u + v) > 1.0
+        u = np.where(flip, 1.0 - u, u)
+        v = np.where(flip, 1.0 - v, v)
+        return (tri[:, 0] + u * (tri[:, 1] - tri[:, 0])
+                + v * (tri[:, 2] - tri[:, 0])).astype(np.float32)
+
+
+def _node_matrix(node: dict) -> np.ndarray:
+    if "matrix" in node:
+        return np.asarray(node["matrix"], np.float64).reshape(4, 4).T
+    m = np.eye(4)
+    if "scale" in node:
+        m[:3, :3] = np.diag(node["scale"])
+    if "rotation" in node:  # xyzw quaternion
+        x, y, z, w = node["rotation"]
+        r = np.array([
+            [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+            [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+            [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
+        ])
+        m[:3, :3] = r @ m[:3, :3]
+    if "translation" in node:
+        m[:3, 3] = node["translation"]
+    return m
+
+
+def _read_accessor(gltf: dict, binary: bytes, accessor_idx: int) -> np.ndarray:
+    acc = gltf["accessors"][accessor_idx]
+    view = gltf["bufferViews"][acc["bufferView"]]
+    dtype = _COMPONENT_DTYPES[acc["componentType"]]
+    ncomp = _TYPE_COUNTS[acc["type"]]
+    offset = view.get("byteOffset", 0) + acc.get("byteOffset", 0)
+    count = acc["count"]
+    stride = view.get("byteStride")
+    if stride and stride != _COMPONENT_SIZES[acc["componentType"]] * ncomp:
+        data = np.stack([np.frombuffer(binary, dtype, ncomp, offset + i * stride)
+                         for i in range(count)])
+    else:
+        data = np.frombuffer(binary, dtype, count * ncomp, offset).reshape(count, ncomp)
+    return data.copy()
+
+
+def load_glb(path) -> Mesh:
+    """Load the merged, vertex-coloured triangle geometry of a GLB file."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    magic, _version, _length = struct.unpack_from("<III", raw, 0)
+    if magic != _GLB_MAGIC:
+        raise ValueError(f"Not a GLB file: {path}")
+    offset = 12
+    gltf = None
+    binary = b""
+    while offset < len(raw):
+        clen, ctype = struct.unpack_from("<II", raw, offset)
+        payload = raw[offset + 8:offset + 8 + clen]
+        if ctype == _CHUNK_JSON:
+            gltf = json.loads(payload)
+        elif ctype == _CHUNK_BIN:
+            binary = payload
+        offset += 8 + clen
+    if gltf is None:
+        raise ValueError("GLB missing JSON chunk")
+
+    all_v, all_f, all_c = [], [], []
+    vcount = 0
+
+    def visit(node_idx: int, parent: np.ndarray):
+        nonlocal vcount
+        node = gltf["nodes"][node_idx]
+        m = parent @ _node_matrix(node)
+        for prim in gltf["meshes"][node["mesh"]]["primitives"] if "mesh" in node else []:
+            attrs = prim.get("attributes", {})
+            if "POSITION" not in attrs:
+                continue
+            if "TEXCOORD_0" in attrs:
+                raise NotImplementedError(f"{path}: textured GLBs are not ported yet "
+                                          "(they come with TRELLIS)")
+            pos = _read_accessor(gltf, binary, attrs["POSITION"]).astype(np.float64)
+            pos = pos @ m[:3, :3].T + m[:3, 3]
+            if "indices" in prim:
+                idx = _read_accessor(gltf, binary, prim["indices"]).reshape(-1, 3)
+            else:
+                idx = np.arange(len(pos)).reshape(-1, 3)
+            all_v.append(pos.astype(np.float32))
+            all_f.append(idx.astype(np.int64) + vcount)
+            all_c.append(_read_accessor(gltf, binary, attrs["COLOR_0"])
+                         if "COLOR_0" in attrs else None)
+            vcount += len(pos)
+        for child in node.get("children", []):
+            visit(child, m)
+
+    scene = gltf.get("scenes", [{}])[gltf.get("scene", 0)]
+    for r in scene.get("nodes", list(range(len(gltf.get("nodes", []))))):
+        visit(r, np.eye(4))
+    if not all_v:
+        return Mesh(np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32))
+    colors = None
+    if all(c is not None for c in all_c):
+        colors = np.concatenate(all_c, axis=0)
+    return Mesh(vertices=np.concatenate(all_v, axis=0),
+                faces=np.concatenate(all_f, axis=0).astype(np.int32), colors=colors)
+
+
+def save_glb(path, mesh: Mesh) -> None:
+    """Write one triangle mesh as a GLB (positions, indices, optional
+    vertex colours), byte for byte as the JAX package writes it."""
+    v = np.ascontiguousarray(mesh.vertices, np.float32)
+    f = np.ascontiguousarray(mesh.faces, np.uint32).reshape(-1, 3)
+    buffers = [v.tobytes(), f.tobytes()]
+    views = [
+        {"buffer": 0, "byteOffset": 0, "byteLength": len(buffers[0]), "target": 34962},
+        {"buffer": 0, "byteOffset": len(buffers[0]), "byteLength": len(buffers[1]),
+         "target": 34963},
+    ]
+    accessors = [
+        {"bufferView": 0, "componentType": 5126, "count": len(v), "type": "VEC3",
+         "min": v.min(axis=0).tolist() if len(v) else [0, 0, 0],
+         "max": v.max(axis=0).tolist() if len(v) else [0, 0, 0]},
+        {"bufferView": 1, "componentType": 5125, "count": f.size, "type": "SCALAR"},
+    ]
+    attributes = {"POSITION": 0}
+    if mesh.colors is not None:
+        c = np.ascontiguousarray(mesh.colors, np.float32)
+        off = sum(len(b) for b in buffers)
+        buffers.append(c.tobytes())
+        views.append({"buffer": 0, "byteOffset": off, "byteLength": len(buffers[-1]),
+                      "target": 34962})
+        accessors.append({"bufferView": len(views) - 1, "componentType": 5126,
+                          "count": len(c), "type": "VEC3" if c.shape[1] == 3 else "VEC4"})
+        attributes["COLOR_0"] = len(accessors) - 1
+
+    bin_blob = b"".join(buffers)
+    bin_blob += b"\x00" * ((-len(bin_blob)) % 4)
+    gltf = {
+        "asset": {"version": "2.0", "generator": "labelany3d_tpu"},
+        "scene": 0,
+        "scenes": [{"nodes": [0]}],
+        "nodes": [{"mesh": 0}],
+        "meshes": [{"primitives": [{"attributes": attributes, "indices": 1, "mode": 4}]}],
+        "buffers": [{"byteLength": len(bin_blob)}],
+        "bufferViews": views,
+        "accessors": accessors,
+    }
+    js = json.dumps(gltf).encode()
+    js += b" " * ((-len(js)) % 4)
+    total = 12 + 8 + len(js) + 8 + len(bin_blob)
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<III", _GLB_MAGIC, 2, total))
+        fh.write(struct.pack("<II", len(js), _CHUNK_JSON))
+        fh.write(js)
+        fh.write(struct.pack("<II", len(bin_blob), _CHUNK_BIN))
+        fh.write(bin_blob)

@@ -1,6 +1,7 @@
 """IoU-based bipartite matching on the host (scipy), as
-`labelany3d_tpu/export/hungarian.py::hungarian_match`. The on-device
-auction solver is not ported yet."""
+`labelany3d_tpu/export/hungarian.py::hungarian_match`, except that a pair
+with a non-finite IoU scores 0 instead of raising. The on-device auction
+solver is not ported yet."""
 
 from __future__ import annotations
 
@@ -21,5 +22,8 @@ def hungarian_match(boxes0: np.ndarray, boxes1: np.ndarray) -> list[tuple[int, i
     a0 = (b0[..., 2] - b0[..., 0]) * (b0[..., 3] - b0[..., 1])
     a1 = (b1[..., 2] - b1[..., 0]) * (b1[..., 3] - b1[..., 1])
     iou = inter / (a0 + a1 - inter + 1e-6)
+    # A box projected from corners behind the camera has non-finite edges;
+    # it overlaps nothing (scipy refuses NaN, so the JAX version raises).
+    iou = np.where(np.isfinite(iou), iou, 0.0)
     rows, cols = linear_sum_assignment(-iou)
     return [(int(i), int(j), float(iou[i, j])) for i, j in zip(rows, cols)]

@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from labelany3d_tpu_torch.geometry.reductions import masked_mad
+from labelany3d_tpu_torch.geometry.reductions import masked_mad, masked_median
 
 DEPTH_SENTINEL = 10000.0
 
@@ -134,3 +134,15 @@ def align_depth_affine(
     aligned = fit.scale[:, None, None] * rel + fit.shift[:, None, None]
     out = torch.where(predict_region, aligned, torch.full_like(aligned, DEPTH_SENTINEL))
     return torch.where(fit.ok[:, None, None], out, met)
+
+
+def median_ratio_scale(scene_depth: torch.Tensor, render_depth: torch.Tensor,
+                       overlap: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Robust scale median(scene / render) over an overlap mask; returns
+    (scale, has_overlap). Leading dims of `render_depth` and `overlap`
+    batch over objects against one (H, W) scene depth."""
+    render = render_depth.float()
+    ratios = scene_depth.float() / torch.where(render != 0, render, torch.ones_like(render))
+    overlap = overlap.bool() & (render != 0)
+    scale = masked_median(ratios.flatten(-2), overlap.flatten(-2))
+    return scale, overlap.flatten(-2).any(-1)

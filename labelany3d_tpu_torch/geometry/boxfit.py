@@ -1,10 +1,11 @@
 """Oriented 3D bounding-box fitting with ground alignment, batched.
 
-Counterpart of `labelany3d_tpu/geometry/boxfit.py` for `method='pca'` and
-the plain `'minarea'` yaw grid search. Every function broadcasts over
-leading batch dims, so `fit_boxes_batch` needs no vmap. The float16
-rounding of the vertices (`f16_vertices`) is kept, as in the reference.
-`'minarea_pallas'` needs the yaw kernel K4, which is not ported yet.
+Counterpart of `labelany3d_tpu/geometry/boxfit.py`: `method='pca'`, the
+plain `'minarea'` yaw grid search, and `'minarea_pallas'`, whose yaw search
+over the whole instance batch is the kernel K4 (`ops/boxfit_yaw.py`). Every
+function broadcasts over leading batch dims, so `fit_boxes_batch` needs no
+vmap. The float16 rounding of the vertices (`f16_vertices`) is kept, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 
 from labelany3d_tpu_torch.geometry.reductions import masked_max, masked_mean, masked_min
 from labelany3d_tpu_torch.geometry.transforms import rotate_y, rotation_matrix_from_vectors
-from labelany3d_tpu_torch.utils.precision import f32_precision
+from labelany3d_tpu_torch.utils.precision import f32_precision, full_f32
 
 
 class BoxEstimate(NamedTuple):
@@ -110,8 +111,10 @@ def upright_rotation(up_vector: torch.Tensor | None, batch_shape=(), device=None
 @f32_precision
 def estimate_bbox(points: torch.Tensor, valid: torch.Tensor | None = None,
                   up_vector: torch.Tensor | None = None, method: str = "pca", *,
-                  num_angles: int = 128, f16_vertices: bool = True) -> BoxEstimate:
-    """Fit ground-aligned oriented boxes to (..., N, 3) point sets."""
+                  num_angles: int = 128, f16_vertices: bool = True,
+                  yaw_override: torch.Tensor | None = None) -> BoxEstimate:
+    """Fit ground-aligned oriented boxes to (..., N, 3) point sets.
+    `yaw_override` (...) gives precomputed yaws in the upright frame."""
     points = points.float()
     finite = torch.isfinite(points).all(-1)
     valid = finite if valid is None else (valid.bool() & finite)
@@ -121,13 +124,12 @@ def estimate_bbox(points: torch.Tensor, valid: torch.Tensor | None = None,
     r_g = upright_rotation(up_vector, batch_shape=points.shape[:-2], device=points.device)
     upright = torch.einsum("...nj,...ji->...ni", safe, r_g)
     xz = upright[..., [0, 2]]
-    if method == "pca":
+    if yaw_override is not None:
+        yaw = yaw_override.float()
+    elif method == "pca":
         yaw = estimate_yaw_pca(xz, valid)
     elif method in ("minarea", "convex_hull"):
         yaw = estimate_yaw_minarea(xz, valid, num_angles=num_angles)
-    elif method == "minarea_pallas":
-        raise NotImplementedError("method='minarea_pallas' needs the yaw kernel K4, "
-                                  "which is not ported yet")
     else:
         raise ValueError(f"Unknown method: {method}. Use 'pca' or 'minarea'.")
 
@@ -153,5 +155,23 @@ def estimate_bbox(points: torch.Tensor, valid: torch.Tensor | None = None,
 def fit_boxes_batch(points: torch.Tensor, valid: torch.Tensor,
                     up_vectors: torch.Tensor | None = None, method: str = "pca",
                     **kwargs) -> BoxEstimate:
-    """`estimate_bbox` over (..., I, N, 3) instance point sets."""
-    return estimate_bbox(points, valid, up_vectors, method=method, **kwargs)
+    """`estimate_bbox` over (..., I, N, 3) instance point sets.
+
+    method='minarea_pallas' first runs the min-area yaw search (512 angles)
+    of every instance in one call of `ops.boxfit_yaw.yaw_minarea`, then
+    finishes extents and vertices as usual."""
+    if method != "minarea_pallas":
+        return estimate_bbox(points, valid, up_vectors, method=method, **kwargs)
+    from labelany3d_tpu_torch.ops.boxfit_yaw import yaw_minarea
+
+    with full_f32():
+        points = points.float()
+        v = valid.bool() & torch.isfinite(points).all(-1)
+        safe = torch.where(v[..., None], points, torch.zeros_like(points))
+        r_g = upright_rotation(up_vectors, batch_shape=points.shape[:-2],
+                               device=points.device)
+        upright = torch.einsum("...nj,...ji->...ni", safe, r_g)
+        n = points.shape[-2]
+        yaws = yaw_minarea(upright[..., [0, 2]].reshape(-1, n, 2), v.reshape(-1, n))
+    return estimate_bbox(points, valid, up_vectors, method="minarea",
+                         yaw_override=yaws.reshape(points.shape[:-2]), **kwargs)

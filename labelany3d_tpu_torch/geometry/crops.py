@@ -1,9 +1,10 @@
 """Instance crop bookkeeping: square padded crops by inverse-map sampling.
 
-Counterpart of `labelany3d_tpu/geometry/crops.py` (crop geometry and the
-bilinear resample; the crop-to-image inverse maps wait with the layout
-stage). Each output pixel inverse-maps to a source coordinate and is sampled
-directly, reproducing the reference's paste-into-square + cv2 bilinear resize.
+Counterpart of `labelany3d_tpu/geometry/crops.py`: crop geometry, the
+bilinear resample, and the inverse maps from crop space back to the image
+(`restore_mask_from_crop`, `crop_to_image_coords`). Each output pixel
+inverse-maps to a source coordinate and is sampled directly, reproducing the
+reference's paste-into-square + cv2 resizes.
 """
 
 from __future__ import annotations
@@ -91,3 +92,40 @@ def crop_resample(image: torch.Tensor, mask: torch.Tensor, params: CropParams,
     rgb = _bilinear_gather(image, ys, xs, rect)
     m = _bilinear_gather(mask.float(), ys, xs, rect)
     return rgb, m >= 0.999
+
+
+def restore_mask_from_crop(resized_mask: torch.Tensor, offset_x: float, offset_y: float,
+                           scale: float, out_shape: tuple[int, int]) -> torch.Tensor:
+    """Map a (crop, crop) mask back onto the full image; (H, W) bool.
+
+    Every output pixel nearest-samples the crop (cv2 INTER_NEAREST:
+    src = floor(dst * src_size / dst_size)) inside the pasted window of side
+    int(crop / scale) at the rounded offset. The quotient is nudged by 1e-6
+    relative before flooring, as in the JAX package: in float32 it can land a
+    hair below its integer value (256 / 2.048 = 124.99999)."""
+    crop = resized_mask
+    crop_size = crop.shape[-1]
+    oh, ow = out_shape
+    dev = crop.device
+    q = torch.tensor(float(crop_size), dtype=torch.float32) / torch.tensor(
+        scale, dtype=torch.float32)
+    ocs = max(int(torch.floor(q * (1.0 + 1e-6))), 1)
+    x1 = int(torch.round(torch.tensor(offset_x, dtype=torch.float32)))
+    y1 = int(torch.round(torch.tensor(offset_y, dtype=torch.float32)))
+    u = torch.arange(ow, device=dev)[None, :] - x1
+    v = torch.arange(oh, device=dev)[:, None] - y1
+    inside = (u >= 0) & (u < ocs) & (v >= 0) & (v < ocs)
+    ratio = torch.tensor(float(crop_size), dtype=torch.float32) / float(ocs)
+    cu = torch.floor(u.float() * ratio).long().clamp(0, crop_size - 1)
+    cv = torch.floor(v.float() * ratio).long().clamp(0, crop_size - 1)
+    return inside & crop[cv, cu].bool()
+
+
+def crop_to_image_coords(pts_crop: torch.Tensor, offset_x, offset_y, scale) -> torch.Tensor:
+    """(..., 2) crop-pixel coordinates -> full-image pixels:
+    pts / scale + (offset_x, offset_y)."""
+    offs = torch.stack(torch.broadcast_tensors(torch.as_tensor(offset_x, dtype=torch.float32),
+                                               torch.as_tensor(offset_y, dtype=torch.float32)),
+                       dim=-1).to(pts_crop.device)
+    return pts_crop / torch.as_tensor(scale, dtype=torch.float32,
+                                      device=pts_crop.device)[..., None] + offs

@@ -1,5 +1,5 @@
 """Rotation primitives, batched over leading dims; counterpart of
-`labelany3d_tpu/geometry/transforms.py` (what the box fit uses)."""
+`labelany3d_tpu/geometry/transforms.py` (what the box fit and PnP use)."""
 
 from __future__ import annotations
 
@@ -60,3 +60,15 @@ def rotation_matrix_from_vectors(vec1: torch.Tensor, vec2: torch.Tensor) -> torc
     flip = 2.0 * ortho[..., :, None] * ortho[..., None, :] - torch.eye(3, device=a.device)
     degenerate = s2 < 1e-10
     return torch.where(degenerate, torch.where(cos_theta < 0.0, flip, eye), general)
+
+
+@f32_precision
+def so3_exp(w: torch.Tensor) -> torch.Tensor:
+    """Exponential map so(3) -> SO(3) for (..., 3) rotation vectors."""
+    norm = torch.linalg.norm(w, dim=-1, keepdim=True)
+    theta = norm.clamp_min(_EPS)
+    k = skew(w / theta)
+    t = theta[..., None]
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(k.shape)
+    r = eye + torch.sin(t) * k + (1.0 - torch.cos(t)) * (k @ k)
+    return torch.where(norm[..., None] < 1e-8, eye + skew(w), r)

@@ -6,6 +6,10 @@ N(0, 0.02) position embeddings), drawn from an explicit `torch.Generator`.
 The streams differ from `jax.random`, so parity tests carry the JAX
 package's own parameters across with `flax_to_state_dict` instead.
 
+The port's modules carry the Flax module names (`block{i}.attn.qkv` in the
+ViT; `dec0_block{i}.self_q`, `dec1_block{i}.mlp.fc1`, `head0.proj` in the
+matcher), so one set of rules serves every model.
+
 Mapping rules (Flax leaf -> PyTorch parameter), module paths joined by '.':
   Dense `kernel` (in, out)     -> `weight` (out, in)
   Conv  `kernel` (kh, kw, I, O) -> `weight` (O, I, kh, kw)

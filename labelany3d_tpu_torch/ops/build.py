@@ -65,6 +65,17 @@ def build(name: str, verbose: bool = False) -> str:
     return proc.stdout
 
 
+def build_all(verbose: bool = False) -> dict[str, str]:
+    """Compile every `csrc/*.cu` at once, one nvcc process per source;
+    returns {name: nvcc output}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        logs = list(pool.map(lambda n: build(n, verbose), names))
+    return dict(zip(names, logs))
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load `csrc/<name>.cu` as a shared library."""
     with _lock:

@@ -1,9 +1,11 @@
-"""Depth backends for the pipeline stages (real models or an analytic fake).
+"""Model backends for the pipeline stages (real models or an analytic fake).
 
 Counterpart of `labelany3d_tpu/pipeline/backends.py`: `TorchDepthBackend`
 mirrors `JaxDepthBackend` (MoGe gives relative depth and intrinsics;
-DepthPro, conditioned on MoGe's focal, gives metric depth), and
-`FakeDepthBackend` serves pre-registered analytic depth for tests.
+DepthPro, conditioned on MoGe's focal, gives metric depth),
+`FakeDepthBackend` serves pre-registered analytic depth for tests, and
+`TorchMatcherBackend` mirrors `JaxMatcherBackend` (TwoViewMatcher +
+reciprocal NN) for the layout stage's registration.
 """
 
 from __future__ import annotations
@@ -124,6 +126,115 @@ class FakeDepthBackend:
         }
 
 
+class TorchMatcherBackend:
+    """Registration matcher: TwoViewMatcher + reciprocal NN, the
+    `registration.process.MatcherBackend` protocol.
+
+    The model is built on first use at the views' size with random weights
+    from a `torch.Generator` seeded with `seed`, as the JAX backend does
+    without converted weights (registration poses are then meaningless).
+    `tiny` selects `MatcherConfig.tiny_test()` (the default, as in the JAX
+    package); `tiny=False` is the full-width `MatcherConfig()`. Every call
+    is one matcher forward (counted in `forwards`) followed by one batched
+    reciprocal-NN pass over all of its pairs.
+    """
+
+    def __init__(self, cfg=None, seed: int = 0, tiny: bool = True,
+                 device: str | torch.device | None = None):
+        from labelany3d_tpu_torch.models.matcher import MatcherConfig
+
+        self.device = resolve_device(device)
+        self.cfg = cfg or (MatcherConfig.tiny_test() if tiny else MatcherConfig())
+        self._seed = seed
+        self.model = None
+        self.forwards = 0
+
+    def _ensure(self, h: int, w: int) -> None:
+        p = self.cfg.encoder.patch_size
+        if self.model is not None:
+            if self.model.encoder.pos_embed.shape[1:3] != (h // p, w // p):
+                raise NotImplementedError(
+                    f"the matcher was built for a {tuple(self.model.encoder.pos_embed.shape[1:3])}"
+                    f" token grid; views of {h}x{w} need resize_pos_embed, not ported yet")
+            return
+        from labelany3d_tpu_torch.models.matcher import TwoViewMatcher
+        from labelany3d_tpu_torch.utils.logging import warn_once
+
+        warn_once("matcher_random",
+                  "matcher backend runs with random-initialized descriptors (no "
+                  "converted MASt3R checkpoint): registration poses and scales "
+                  "are not meaningful")
+        gen = torch.Generator(device=self.device).manual_seed(self._seed)
+        with torch.device(self.device):
+            model = TwoViewMatcher(self.cfg, (h // p, w // p))
+        self.model = init_params_(model, gen).eval().requires_grad_(False)
+
+    @staticmethod
+    def _prep_ref(ref_rgba: np.ndarray, h: int, w: int) -> np.ndarray:
+        ref = np.asarray(ref_rgba, np.float32)[..., :3]
+        if ref.shape[:2] != (h, w):
+            raise NotImplementedError(
+                f"reference crop {ref.shape[:2]} differs from the render size {(h, w)}; "
+                "the crop resize is not ported yet (set crop_size == render_size)")
+        return ref
+
+    @torch.inference_mode()
+    def _run(self, refs: np.ndarray, views: np.ndarray, ref_index=None):
+        """One forward over (R, h, w, 3) refs and (P, h, w, 3) views, then
+        reciprocal NN over the P pairs; returns numpy (xy0, xy1, valid)."""
+        from labelany3d_tpu_torch.ops.reciprocal_nn import reciprocal_nn_match
+
+        self.forwards += 1
+        dev = self.device
+        idx = None if ref_index is None else torch.as_tensor(ref_index, device=dev)
+        out = self.model(torch.as_tensor(refs, device=dev), torch.as_tensor(views, device=dev),
+                         ref_index=idx)
+        res = reciprocal_nn_match(out["desc0"], out["desc1"])
+        return res.xy0.cpu().numpy(), res.xy1.cpu().numpy(), res.valid.cpu().numpy()
+
+    def match(self, ref_rgba: np.ndarray, view) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        h, w = view.rgba.shape[:2]
+        self._ensure(h, w)
+        ref = self._prep_ref(ref_rgba, h, w)
+        xy0, xy1, valid = self._run(ref[None], np.asarray(view.rgba, np.float32)[None, ..., :3])
+        return xy0[0], xy1[0], valid[0]
+
+    def match_batch(self, ref_rgba: np.ndarray, views) -> list[tuple]:
+        """The reference crop against all `views` in one forward (the crop
+        is encoded once and broadcast)."""
+        if not views:
+            return []
+        h, w = views[0].rgba.shape[:2]
+        self._ensure(h, w)
+        ref = self._prep_ref(ref_rgba, h, w)
+        imgs = np.stack([v.rgba[..., :3] for v in views]).astype(np.float32)
+        xy0, xy1, valid = self._run(ref[None], imgs)
+        return [(xy0[v], xy1[v], valid[v]) for v in range(len(views))]
+
+    def match_pairs(self, refs: list[np.ndarray], views, ref_index: list[int]) -> list[tuple]:
+        """All of an image's (reference crop, rendered view) pairs in one
+        matcher forward. Counts are bucketed as in the JAX package (refs to
+        a power of two, pairs to the same ratio, else a power of two)."""
+        if not views:
+            return []
+        h, w = views[0].rgba.shape[:2]
+        self._ensure(h, w)
+        r, p = len(refs), len(views)
+        rb = 1 << max(0, r - 1).bit_length()
+        ratio = p // r if r and p % r == 0 else 0
+        pb = ratio * rb if ratio else 1 << max(0, p - 1).bit_length()
+        ref_arr = np.zeros((rb, h, w, 3), np.float32)
+        for i, ref in enumerate(refs):
+            ref_arr[i] = self._prep_ref(ref, h, w)
+        view_arr = np.zeros((pb, h, w, 3), np.float32)
+        for i, v in enumerate(views):
+            view_arr[i] = v.rgba[..., :3]
+        idx = np.zeros((pb,), np.int64)
+        idx[:p] = np.asarray(ref_index, np.int64)
+        xy0, xy1, valid = self._run(ref_arr, view_arr, idx)
+        return [(xy0[i], xy1[i], valid[i]) for i in range(p)]
+
+
 def make_depth(preset: str = "large", **kw) -> TorchDepthBackend:
     """Depth backend presets, as `register_default_backends().make_depth`."""
     if preset == "tiny_test":
@@ -143,7 +254,8 @@ def make_depth(preset: str = "large", **kw) -> TorchDepthBackend:
 
 
 def default_registry() -> ModelRegistry:
-    """A registry with the production depth factory under 'depth'."""
+    """A registry with the production factories: 'depth' and 'matcher'."""
     reg = ModelRegistry()
     reg.register("depth", make_depth)
+    reg.register("matcher", TorchMatcherBackend)
     return reg

@@ -1,12 +1,19 @@
 """CLI entry point: `python -m labelany3d_tpu_torch.pipeline.runner <stage> ...`.
 
-Counterpart of `labelany3d_tpu/pipeline/runner.py` for the routes the port
+Counterpart of `labelany3d_tpu/pipeline/runner.py` for the stages the port
 has: the same flags (--config, --start_index, --end_index, --split,
 --save_dir, --dataset_root) plus dotted `key=value` config overrides.
 
-  crops   stage 3  (instance crops)
-  export  stage 8  (COCO3D Omni3D JSON)
-  fast    fused depth + boxes -> crops -> export
+  depth           stage 1  (MoGe + DepthPro -> aligned depth)
+  crops           stage 3  (instance crops)
+  reconstruction  stage 6  (image -> 3D, silhouette extrusion)
+  layout          stage 7  (register meshes + ground-aligned boxes)
+  export          stage 8  (COCO3D Omni3D JSON)
+  fast            fused depth + boxes -> crops -> export
+
+The registration chain is depth, crops, reconstruction, layout, export,
+run one stage after the other (stages 2, 4 and 5 are not ported; layout
+runs without their artifacts, as at their shipping defaults).
 
 Runs on CUDA; `--device cpu` runs the plain PyTorch path on the CPU.
 """
@@ -18,7 +25,7 @@ import argparse
 from labelany3d_tpu_torch.pipeline.config import PipelineConfig, load_config
 from labelany3d_tpu_torch.utils.profiling import StageTimer
 
-_STAGES = ["crops", "export", "fast"]
+_STAGES = ["depth", "crops", "reconstruction", "layout", "export", "fast"]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -35,37 +42,73 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def run_stages(stage: str, cfg: PipelineConfig, loader, source, save_dir: str, split: str,
-               start_index: int, end_index: int, *, backend=None, preset: str = "large",
-               device=None, timer: StageTimer | None = None) -> dict:
+               start_index: int, end_index: int, *, backend=None, matcher=None,
+               preset: str = "large", device=None,
+               timer: StageTimer | None = None, stages: dict | None = None) -> dict:
     """Run one route over an index range; returns {stage: count}.
 
     `backend` defaults to `make_depth(preset)` pinned to the first bucket,
-    with random weights seeded from `cfg.seed`."""
-    from labelany3d_tpu_torch.pipeline.stages import CropStage, ExportStage, FusedFastStage
+    and `matcher` to the registry's `TorchMatcherBackend` (the tiny matcher,
+    as in the JAX package), both with random weights seeded from
+    `cfg.seed`.
+    `stages`, when given, receives each stage object by name (a caller can
+    read `stages["layout"].failures`)."""
+    from labelany3d_tpu_torch.pipeline.backends import default_registry
+    from labelany3d_tpu_torch.pipeline.stages import (
+        CropStage,
+        DepthStage,
+        ExportStage,
+        FusedFastStage,
+        LayoutStage,
+        ReconstructionStage,
+    )
 
     timer = timer or StageTimer()
     counts = {}
+    stages = {} if stages is None else stages
 
-    def run_fused():
+    def depth_backend():
         nonlocal backend
         if backend is None:
-            from labelany3d_tpu_torch.pipeline.backends import default_registry
-
             backend = default_registry().get("depth", preset=preset,
                                              pin_hw=cfg.bucket_sizes()[0], device=device,
                                              seed=cfg.seed)
-        return FusedFastStage(cfg, backend, loader, source, save_dir, split).run(
-            start_index, end_index)
+        return backend
+
+    def run_fused():
+        stages["fused"] = FusedFastStage(cfg, depth_backend(), loader, source, save_dir, split)
+        return stages["fused"].run(start_index, end_index)
+
+    def run_depth():
+        stages["depth"] = DepthStage(cfg, depth_backend(), loader, source, save_dir, split)
+        return stages["depth"].run(start_index, end_index)
+
+    def run_reconstruction():
+        stages["reconstruction"] = ReconstructionStage(cfg, loader, save_dir, split)
+        return stages["reconstruction"].run(start_index, end_index)
+
+    def run_layout():
+        nonlocal matcher
+        if matcher is None:
+            matcher = default_registry().get("matcher", seed=cfg.seed, device=device)
+        stages["layout"] = LayoutStage(cfg, loader, save_dir, split, matcher=matcher,
+                                       device=device)
+        return stages["layout"].run(start_index, end_index)
 
     def run_crops():
-        return CropStage(cfg, loader, source, save_dir, split, device=device).run(
-            start_index, end_index)
+        # Crops at the render size (512 by default, as in the JAX package),
+        # so the matcher sees reference crops at its views' size: the
+        # reference-crop resize the JAX backend does with Pillow is not
+        # ported.
+        return CropStage(cfg, loader, source, save_dir, split, crop_size=cfg.render_size,
+                         device=device).run(start_index, end_index)
 
     def run_export():
         return len(ExportStage(save_dir, split).run()["images"])
 
-    routes = {"crops": [run_crops], "export": [run_export],
-              "fast": [run_fused, run_crops, run_export]}
+    routes = {"depth": [run_depth], "crops": [run_crops],
+              "reconstruction": [run_reconstruction], "layout": [run_layout],
+              "export": [run_export], "fast": [run_fused, run_crops, run_export]}
     for fn in routes[stage]:
         name = fn.__name__.replace("run_", "")
         with timer.measure(name):

@@ -89,8 +89,20 @@ class SceneDir:
     def crop_params(self, obj_id: str) -> Path:
         return self.root / "crops" / f"{obj_id}_crop_params.npy"
 
+    def crop_completed(self, obj_id: str) -> Path:
+        return self.root / "crops" / f"{obj_id}_rgba.png"
+
     def elevation(self, obj_id: str) -> Path:
         return self.root / "object_space" / str(obj_id) / "estimated_elevation.npy"
+
+    def object_mesh(self, obj_id: str) -> Path:
+        return self.root / "object_space" / f"{obj_id}.glb"
+
+    def scene_mesh(self, obj_id: str) -> Path:
+        return self.root / "reconstruction" / f"{obj_id}.glb"
+
+    def canonical_upright(self, obj_id: str) -> Path:
+        return self.root / "reconstruction" / f"{obj_id}_canonical_upright.npy"
 
     # -- resume predicates (skip-if-exists parity) ------------------------
     def depth_done(self) -> bool:
@@ -115,6 +127,9 @@ class SceneDir:
         }
         self.cam_params.write_text(json.dumps(payload))
 
+    def read_cam_params(self) -> dict:
+        return json.loads(self.cam_params.read_text())
+
     def write_depth(self, depth: np.ndarray) -> None:
         np.save(self.depth_map, np.asarray(depth, np.float32))
 
@@ -129,3 +144,9 @@ class SceneDir:
 
     def write_bboxes2d(self, boxes: np.ndarray) -> None:
         self.bboxes2d.write_text(json.dumps(np.asarray(boxes, np.float64).tolist()))
+
+    def list_crop_ids(self) -> list[str]:
+        """Object ids from crop file names (the reference encodes metadata in
+        names and parses it back, `src/util_3dbox.py:252-254`)."""
+        crops = sorted((self.root / "crops").glob("*_reproj.png"))
+        return [p.stem.replace("_reproj", "") for p in crops]

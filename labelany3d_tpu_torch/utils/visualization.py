@@ -1,6 +1,7 @@
 """Overlay visualization: project 3D boxes onto the input image.
 
-A copy of `labelany3d_tpu/utils/visualization.py`; parity target
+A copy of `labelany3d_tpu/utils/visualization.py` that skips boxes with a
+corner at or behind the camera plane (the JAX version raises there); parity target
 `src/util.py:232-289` (`draw_cube`) — green corner dots,
 blue box edges, red category label at the topmost corner, written as
 `vis_3dbox.png`.
@@ -42,7 +43,11 @@ def draw_cube_overlay(scene, is_ground: bool = False, image: np.ndarray | None =
     for cube in cubes:
         verts = np.asarray(cube["bbox3D_cam"], np.float64)
         uvw = verts @ K.T
+        if not (uvw[:, 2] > 1e-6).all():
+            continue  # a corner at or behind the camera plane has no image point
         pts = uvw[:, :2] / uvw[:, 2:3]
+        if np.abs(pts).max() > 1e6:
+            continue  # too far outside the image for OpenCV's integer coordinates
         top = pts[np.argmin(pts[:, 1])]
         for p in pts:
             cv2.circle(image, tuple(np.round(p).astype(int)), 3, (0, 255, 0), -1)

@@ -48,7 +48,12 @@ def test_source_scan_finds_no_forbidden_import():
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
-    from labelany3d_tpu_torch.pipeline.backends import FakeDepthBackend, make_depth
+    from labelany3d_tpu_torch.pipeline.backends import (
+        FakeDepthBackend,
+        TorchMatcherBackend,
+        make_depth,
+    )
+    from labelany3d_tpu_torch.registration.renderer import OrbitRenderer
     from labelany3d_tpu_torch.utils.device import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -56,6 +61,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
         make_depth("tiny_test")
     with pytest.raises(RuntimeError, match="CUDA"):
         FakeDepthBackend([[[1.0]]], [[1, 0, 0], [0, 1, 0], [0, 0, 1]])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchMatcherBackend(tiny=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OrbitRenderer()
+    assert TorchMatcherBackend(device="cpu").cfg.dec_depth == 2  # tiny, as in JAX
+    assert TorchMatcherBackend(tiny=False, device="cpu").cfg.dec_depth == 12
     assert resolve_device("cpu").type == "cpu"
     with pytest.raises(NotImplementedError):
         make_depth("vitl_reference", device="cpu")

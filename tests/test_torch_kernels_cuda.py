@@ -6,7 +6,7 @@ machine without it; `tests/conftest.py` imports JAX, hence:
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest -q
 
-Tolerances, against an fp32 plain version on the same bf16 inputs: 5e-3
+Attention tolerances, against an fp32 plain version on the same bf16 inputs: 5e-3
 absolute and 5e-3 relative L2 (||out - ref|| / ||ref||). The output is
 rounded to bf16 (relative 2^-9) and so is P before the PV product; a wrong
 key tile (the last partial tile dropped, or its pad keys unmasked) moves
@@ -38,3 +38,111 @@ def test_packed_attention_kernel_matches_plain(b, n_pad, n_real):
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= MAX_ABS_TOL
     assert ((got - want).norm() / want.norm()).item() <= REL_TOL
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,pad_keys,strided", [
+    (4, 1296, 1296, 0, False),    # the matcher decoder's self-attention
+    (2, 1296, 777, 0, True),      # cross shape, q read through strides
+    (2, 1296, 1296, 101, False),  # segment ids, NaN in every pad row
+    (1, 5, 67, 0, False),         # one partial tile each way
+])
+def test_flash_attention_kernel_matches_plain(b, sq, sk, pad_keys, strided):
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(1)
+
+    def rand(s):
+        return torch.randn(b, s, 12, 64, device="cuda", generator=g).bfloat16()
+
+    q, k, v = rand(sq), rand(sk), rand(sk)
+    if strided:
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    seg, real = None, slice(None)
+    if pad_keys:
+        seg = torch.zeros(b, sk, dtype=torch.int32, device="cuda")
+        seg[:, sk - pad_keys:] = 1
+        for t in (q, k, v):
+            t[:, sk - pad_keys:] = float("nan")
+        real = slice(0, sk - pad_keys)
+    launches = port.FLASH_LAUNCHES.count
+    got = port.flash_sdpa(q, k, v, seg).float()[:, real]
+    torch.cuda.synchronize()
+    assert port.FLASH_LAUNCHES.count == launches + 1
+    want = port.flash_sdpa_reference(q.float(), k.float(), v.float(), seg)[:, real]
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= MAX_ABS_TOL
+    assert ((got - want).norm() / want.norm()).item() <= REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16", "bf16x3"])
+@pytest.mark.parametrize("pairs,s,n,pad", [(2, 1000, 70001, 0), (1, 64, 4096, 37)])
+def test_nn_argmax_kernel_matches_plain(precision, pairs, s, n, pad):
+    """Same bf16-rounded operands: best scores agree to 1e-5 (fp32 sums of
+    24 products of unit vectors in another order); indices agree wherever
+    the plain best beats the runner-up by more than that. Bank rows at and
+    beyond n_real hold NaN and 1e30 and must never be read."""
+    from labelany3d_tpu_torch.ops import reciprocal_nn as rnn
+
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q = torch.nn.functional.normalize(torch.randn(pairs, s, 24, device="cuda", generator=g),
+                                      dim=-1)
+    bank = torch.nn.functional.normalize(torch.randn(pairs, n, 24, device="cuda", generator=g),
+                                         dim=-1)
+    bank[:, 5] = bank[:, 3]  # exact duplicate rows: ties go to the first
+    bank_p, _ = rnn.pad_bank_for_nn(bank)
+    n_real = n - pad
+    bank_p[:, n_real::2] = float("nan")
+    bank_p[:, n_real + 1::2] = 1e30
+    launches = rnn.KERNEL_LAUNCHES.count
+    idx, best = rnn.nn_argmax(q, bank_p, n_real=n_real, precision=precision)
+    torch.cuda.synchronize()
+    assert rnn.KERNEL_LAUNCHES.count == launches + 1
+    ref_idx, ref_best = rnn.nn_argmax_reference(q, bank_p, n_real=n_real, precision=precision)
+    assert ((idx >= 0) & (idx < n_real)).all()
+    assert (best - ref_best).abs().max().item() <= 1e-5
+    qh, ql = rnn._split_bf16(q)
+    bh, bl = rnn._split_bf16(bank[:, :n_real])
+    sim = torch.einsum("psc,pnc->psn", qh, bh)
+    if precision == "bf16x3":
+        sim += torch.einsum("psc,pnc->psn", qh, bl) + torch.einsum("psc,pnc->psn", ql, bh)
+    top2 = sim.topk(2, dim=-1).values
+    assert not (idx == 5).any()  # row 5 repeats row 3, which comes first
+    clear = (top2[..., 0] - top2[..., 1]) > 1e-5
+    assert torch.equal(idx[clear], ref_idx[clear])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i,n", [(16, 500), (128, 512), (3, 1)])
+def test_yaw_minarea_kernel_matches_plain(i, n):
+    """Yaws equal wherever the best area beats the runner-up by more than
+    1e-6 relative; elsewhere the kernel's area is within 1e-6 of the least."""
+    import math
+
+    from labelany3d_tpu_torch.ops import boxfit_yaw as by
+
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    pts = torch.randn(i, n, 2, device="cuda", generator=g) * torch.tensor([2.0, 0.5],
+                                                                          device="cuda")
+    valid = torch.rand(i, n, device="cuda", generator=g) > 0.3
+    valid[0] = False
+    launches = by.KERNEL_LAUNCHES.count
+    yaw = by.yaw_minarea(pts, valid)
+    torch.cuda.synchronize()
+    assert by.KERNEL_LAUNCHES.count == launches + 1
+    ref = by.yaw_minarea_reference(pts, valid)
+    area = by.footprint_areas(pts, valid)
+    top2 = area.topk(2, dim=-1, largest=False).values
+    finite = torch.isfinite(top2[:, 0])
+    clear = ~finite | ((top2[:, 1] - top2[:, 0]) > 1e-6 * top2[:, 0].abs())
+    assert torch.equal(yaw[clear], ref[clear])
+    at_k = area.gather(1, torch.round(yaw / ((math.pi / 2) / 512)).long()[:, None])[:, 0]
+    excess = ((at_k - top2[:, 0]) / top2[:, 0].abs().clamp_min(1e-30))[~clear]
+    assert excess.numel() == 0 or excess.max().item() <= 1e-6

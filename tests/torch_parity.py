@@ -34,3 +34,70 @@ def jax_sample_draws(key, eff_masks: np.ndarray, num_samples: int) -> torch.Tens
 
 def depth_ok(depth: np.ndarray, max_depth_valid=9000.0) -> np.ndarray:
     return (depth > 0) & (depth < max_depth_valid) & np.isfinite(depth)
+
+
+def jax_pnp_draws(key, n_objects: int, num_trials: int = 256, sample_size: int = 6):
+    """Draws of `labelany3d_tpu.registration.process.register_objects(...,
+    key)`: stage 0 (render intrinsics) takes `split(k1, n)[obj]`, stage 1
+    (image intrinsics) `split(k2, n)[obj]`. Returns the port's
+    `draws(stage, obj, n_valid)` callable."""
+    k1, k2 = jax.random.split(key)
+    keys = (jax.random.split(k1, n_objects), jax.random.split(k2, n_objects))
+
+    def draws(stage, obj, n_valid):
+        return torch.from_numpy(np.array(jax.random.randint(
+            keys[stage][obj], (num_trials, sample_size), 0, max(int(n_valid), 1)))).long()
+
+    return draws
+
+
+def jax_layout_draws(seed: int, objects_per_image: list[int]):
+    """Draws of the JAX `LayoutStage` (seed `cfg.seed`), which splits one key
+    per image it registers, in order; image i registers
+    `objects_per_image[i]` objects. Returns the port stage's
+    `draws(image_index, stage, obj, n_valid)` callable."""
+    key = jax.random.PRNGKey(seed + 21)
+    per_image = []
+    for n in objects_per_image:
+        key, sub = jax.random.split(key)
+        per_image.append(jax_pnp_draws(sub, n))
+    return lambda i, stage, obj, n_valid: per_image[i](stage, obj, n_valid)
+
+
+class OracleMatcher:
+    """Geometry-derived correspondences, as the JAX registration test's
+    `OracleMatcher`, for a renderer with intrinsics `K_render`: unproject the
+    render's depth, place by the ground truth, project into the scene, and
+    express the reference side in crop pixels."""
+
+    def __init__(self, K_img, T_gt, image_hw, crop_params, K_render, num=256):
+        self.K_img, self.T, self.hw = np.asarray(K_img, np.float64), T_gt, image_hw
+        self.crop, self.Kinv, self.num = crop_params, np.linalg.inv(K_render), num
+
+    def match(self, ref_rgba, view):
+        ys, xs = np.nonzero(view.depth > 0)
+        if len(ys) == 0:
+            z = np.zeros((self.num, 2), np.float32)
+            return z, z, np.zeros(self.num, bool)
+        sel = np.linspace(0, len(ys) - 1, self.num).astype(int)
+        yv, xv = ys[sel], xs[sel]
+        d = view.depth[yv, xv].astype(np.float64)
+        obj = (np.stack([xv * d, yv * d, d], -1) @ self.Kinv.T - view.t) @ view.R
+        cam = obj @ self.T[:3, :3].T + self.T[:3, 3]
+        uv = cam @ self.K_img.T
+        uv = uv[:, :2] / uv[:, 2:3]
+        valid = ((cam[:, 2] > 0) & (uv[:, 0] >= 0) & (uv[:, 0] < self.hw[1])
+                 & (uv[:, 1] >= 0) & (uv[:, 1] < self.hw[0]))
+        ox, oy, sc = self.crop
+        return (((uv - [[ox, oy]]) * sc).astype(np.float32), np.stack([xv, yv], -1).astype(
+            np.float32), valid)
+
+
+class PairsMatcher:
+    """Pair p asks the oracle of its reference, `ref_index[p]`."""
+
+    def __init__(self, oracles):
+        self.oracles = oracles
+
+    def match_pairs(self, refs, views, ref_index):
+        return [self.oracles[r].match(refs[r], views[p]) for p, r in enumerate(ref_index)]
