@@ -4,9 +4,11 @@
     python3 chip_smoke.py
 
 builds the port's four CUDA kernels from `labelany3d_tpu_torch/csrc/` with
-nvcc (one process per source, all at once), holds each against its plain
-PyTorch version on the card, checks the fused labeling program on the card
-against the CPU, and drives two paths with random weights from a seed:
+nvcc (one process per source, all at once), checks that the two attention
+kernels compiled to wgmma (HGMMA) and TMA loads (UTMALDG), holds each kernel
+against its plain PyTorch version on the card, checks the fused labeling
+program on the card against the CPU, and drives two paths with random
+weights from a seed:
 
   * the `fast` route (MoGe + DepthPro with ViT-L backbones at the `large`
     preset) over 16 synthetic 512x512 images in two batches of 8;
@@ -126,7 +128,15 @@ def check_attention(shape: dict, seed: int, nan_pad: bool = False) -> dict:
         res["library_ms"] = time_cuda(
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask))
         res["bound_ms"], res["bound_by"] = attention_bound_ms(b, n_pad, n_real, heads, d)
+        res.update(against_yardsticks(res))
     return res
+
+
+def against_yardsticks(res: dict) -> dict:
+    """A timed kernel's time over its library call's, and its bound's share
+    of its time (1.0 would be the card's best)."""
+    return {"ratio_to_library": res["ms"] / res["library_ms"],
+            "share_of_bound": res["bound_ms"] / res["ms"]}
 
 
 def bound(nbytes: float, flops: float, peak_flops: float = H100_BF16_FLOPS):
@@ -177,6 +187,7 @@ def check_flash(b: int, sq: int, sk: int, seed: int, heads: int = 12, d: int = 6
         # q, k, v read and the output written once (bf16); QK^T and PV.
         res["bound_ms"], res["bound_by"] = bound(2 * b * heads * d * (2 * sq + 2 * sk),
                                                  4 * b * heads * sq * sk * d)
+        res.update(against_yardsticks(res))
     return res
 
 
@@ -445,6 +456,38 @@ def check_scene_outputs(save_dir: str, loader, f16_overflow_ok: bool = False) ->
 
 KERNEL_NAMES = {"k1": "packed_attention", "k2": "flash_attention", "k3": "nn_argmax",
                 "k4": "yaw_minarea"}
+# What each kernel's device events are called in a profile: K1 and K2 are
+# one template (attn_sm90::attention_kernel) over their loaders.
+PROFILE_NAMES = {"k1": "PackedLoader", "k2": "StridedLoader", "k3": "nn_argmax",
+                 "k4": "yaw_minarea"}
+# What the Hopper design of K1 and K2 must compile to: warpgroup MMAs
+# (wgmma) and TMA tile loads.
+SASS_REQUIRED = ("HGMMA", "UTMALDG")
+
+
+def cuobjdump() -> str | None:
+    """The toolkit's cuobjdump, or the copy Triton ships, or None."""
+    import shutil
+
+    found = shutil.which("cuobjdump")
+    candidates = [found] if found else []
+    candidates.append("/usr/local/cuda/bin/cuobjdump")
+    try:
+        import triton
+
+        candidates.append(os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia",
+                                       "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    return next((c for c in candidates if c and os.path.exists(c)), None)
+
+
+def sass_opcodes(library: Path, tool: str) -> dict:
+    """How often each opcode of SASS_REQUIRED (and TMA stores) appears in a
+    built library's SASS."""
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    return {op: sass.count(op) for op in (*SASS_REQUIRED, "UTMASTG")}
 
 
 def profile_pass(run) -> dict:
@@ -472,8 +515,9 @@ def profile_pass(run) -> dict:
     out = {"wall_ms": wall * 1e3, "device_ms": sum(r[0] for r in dev),
            "top_device": [(round(ms, 3), name[:60], n) for ms, name, n in dev[:10]],
            "top_host": [(round(ms, 3), name[:60], n) for ms, name, n in host[:8]]}
-    for k, sub in KERNEL_NAMES.items():
+    for k, sub in PROFILE_NAMES.items():
         out[f"{k}_ms"] = sum(r[0] for r in dev if sub in r[1])
+        out[f"{k}_events"] = sum(r[2] for r in dev if sub in r[1])
     return out
 
 
@@ -653,9 +697,19 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     for name, log in logs.items():
         ptxas = " | ".join(ln.strip() for ln in log.splitlines()
-                           if "registers" in ln or "spill" in ln)
+                           if any(w in ln for w in ("registers", "spill", "wgmma", "arning")))
         _say(f"build:{name}", ptxas=json.dumps(ptxas))
     _say("build", s=build_s, kernels=len(logs))
+    tool = cuobjdump()
+    sass = {}
+    for k in ("k1", "k2"):
+        if tool is None:
+            sass[k] = "not measured (no cuobjdump)"
+            continue
+        sass[k] = sass_opcodes(build.library_path(KERNEL_NAMES[k]), tool)
+        if not all(sass[k][op] for op in SASS_REQUIRED):
+            raise SystemExit(f"{KERNEL_NAMES[k]}: SASS lacks {SASS_REQUIRED}: {sass[k]}")
+    _say("sass", cuobjdump=tool, **{k: json.dumps(v) for k, v in sass.items()})
 
     # 3. K1 against its plain version at its path shapes (MoGe, DepthPro, the
     # matcher encoder over 4 references + 32 views), and with NaN pads.
@@ -733,6 +787,7 @@ def main() -> int:
                 else "not measured")
         _say("fast:profile", traced_wall_ms=prof["wall_ms"],
              device_ms=prof["device_ms"], k1_device_ms=prof["k1_ms"],
+             k1_device_events=prof["k1_events"],
              idle_share_of_warm_pass=idle, top_device=json.dumps(prof["top_device"]),
              top_host=json.dumps(prof["top_host"]))
         del backend
@@ -750,7 +805,8 @@ def main() -> int:
         _say("registration:warm", s=reg["warm_s"], images_per_s=reg["images_per_s"],
              stage_s=json.dumps(reg["stage_s"]), max_memory_gb=reg["max_memory_gb"])
         _say("registration:profile", traced_wall_ms=p["wall_ms"], device_ms=p["device_ms"],
-             **{f"{k}_device_ms": p[f"{k}_ms"] for k in KERNEL_NAMES},
+             **{f"{k}_device_ms": p[f"{k}_ms"] for k in PROFILE_NAMES},
+             **{f"{k}_device_events": p[f"{k}_events"] for k in PROFILE_NAMES},
              idle_share_of_warm_pass=reg["idle_share"],
              top_device=json.dumps(p["top_device"]), top_host=json.dumps(p["top_host"]))
         if not reg["ok"]:
@@ -763,18 +819,27 @@ def main() -> int:
                 **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                 **extra}
 
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ratio_to_library",
+             "share_of_bound")
+    design = ("attention_sm90.cuh: 192-query blocks of three consumer warpgroups and a "
+              "TMA producer warpgroup (setmaxnreg 160/24), 128-key K/V tiles in a 4-stage "
+              "mbarrier ring, wgmma m64n128k16 QK^T and m64n64k16 PV with P from "
+              "registers, online softmax in fp32, TMA store")
+
     k2, k3, k4 = kc["k2"], kc["k3"], kc["k4"]
     table = {"kernels": [
         row("packed_attention", "packed_attention.cu", "labelany3d_tpu/ops/attention.py:133",
             launches, k1["moge"], max(r["max_abs_err"] for r in k1.values()),
             launches_registration=reg["launches"]["k1"],
-            shape="MoGe B=8 Npad=1408 n_real=1297 H=16 d=64",
-            **{name: {k: k1[name][k] for k in
-                      ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-               for name in ("depth_pro", "matcher")}),
+            shape="MoGe B=8 Npad=1408 n_real=1297 H=16 d=64", design=design,
+            ratio_to_library=k1["moge"]["ratio_to_library"],
+            share_of_bound=k1["moge"]["share_of_bound"], sass=sass["k1"],
+            **{name: {k: k1[name][k] for k in timed} for name in ("depth_pro", "matcher")}),
         row("flash_attention", "flash_attention.cu", "labelany3d_tpu/ops/attention.py:42",
             reg["launches"]["k2"], k2["path"], max(r["max_abs_err"] for r in k2.values()),
-            shape="q, k, v (32, 1296, 12, 64) bf16"),
+            shape="q, k, v (32, 1296, 12, 64) bf16", design=design,
+            ratio_to_library=k2["path"]["ratio_to_library"],
+            share_of_bound=k2["path"]["share_of_bound"], sass=sass["k2"]),
         row("nn_argmax", "nn_argmax.cu", "labelany3d_tpu/ops/reciprocal_nn.py:29",
             reg["launches"]["k3"], k3["path_bf16"], max(r["max_abs_err"] for r in k3.values()),
             shape="query (32, 4096, 24) x bank (32, 262144, 24), bf16 operands",

@@ -7,8 +7,9 @@ use with
          -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
 
 into `build/kernels/` at the root of the checkout. The file name carries a
-hash of the source, so an edited kernel is rebuilt and a stale library is
-never loaded. Nothing here runs at import time.
+hash of the source and of every shared header `csrc/*.cuh`, so an edited
+kernel or header is rebuilt and a stale library is never loaded. Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -43,8 +44,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """`build/kernels/lib<name>-<hash>.so`, the hash over `csrc/<name>.cu`
+    and every `csrc/*.cuh` (names and contents)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(name: str, verbose: bool = False) -> str:

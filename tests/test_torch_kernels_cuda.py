@@ -23,7 +23,13 @@ REL_TOL = 5e-3
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n_pad,n_real", [(2, 384, 325), (1, 1408, 1297), (1, 128, 1)])
+@pytest.mark.parametrize("b,n_pad,n_real", [
+    (2, 384, 325), (1, 1408, 1297), (1, 128, 1),
+    (1, 256, 128),     # exactly one key tile of 128
+    (1, 256, 129),     # one key past it
+    (3, 64, 61),       # Npad = 64: two of a block's three warpgroups have no rows
+    (36, 1408, 1297),  # the matcher encoder's batch
+])
 def test_packed_attention_kernel_matches_plain(b, n_pad, n_real):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
@@ -46,13 +52,20 @@ def _cuda_or_skip():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,sq,sk,pad_keys,strided", [
-    (4, 1296, 1296, 0, False),    # the matcher decoder's self-attention
-    (2, 1296, 777, 0, True),      # cross shape, q read through strides
-    (2, 1296, 1296, 101, False),  # segment ids, NaN in every pad row
-    (1, 5, 67, 0, False),         # one partial tile each way
+@pytest.mark.parametrize("b,sq,sk,masked,strided", [
+    (4, 1296, 1296, None, False),         # the matcher decoder's self-attention
+    (2, 1296, 777, None, True),           # cross shape, q read through strides
+    (2, 1296, 1296, (1195, 1296), False),  # segment ids, NaN in every pad row
+    (1, 5, 67, None, False),              # one partial tile each way
+    (2, 1, 1296, None, False),            # Sq = 1
+    (2, 300, 1, None, False),             # Sk = 1
+    (2, 300, 129, None, False),           # one key past a whole tile
+    (2, 1296, 1296, (128, 256), False),   # segment ids masking a whole key tile
+    (2, 1296, 1296, (0, 1), False),       # segment ids masking key 0
 ])
-def test_flash_attention_kernel_matches_plain(b, sq, sk, pad_keys, strided):
+def test_flash_attention_kernel_matches_plain(b, sq, sk, masked, strided):
+    """`masked` = (lo, hi): keys lo..hi-1 carry a non-zero segment id, and
+    those rows of q, k and v hold NaN; only the other rows are compared."""
     _cuda_or_skip()
     g = torch.Generator(device="cuda").manual_seed(1)
 
@@ -63,18 +76,35 @@ def test_flash_attention_kernel_matches_plain(b, sq, sk, pad_keys, strided):
     if strided:
         q = q.transpose(1, 2).contiguous().transpose(1, 2)
     seg, real = None, slice(None)
-    if pad_keys:
+    if masked:
+        lo, hi = masked
         seg = torch.zeros(b, sk, dtype=torch.int32, device="cuda")
-        seg[:, sk - pad_keys:] = 1
+        seg[:, lo:hi] = 1
         for t in (q, k, v):
-            t[:, sk - pad_keys:] = float("nan")
-        real = slice(0, sk - pad_keys)
+            t[:, lo:hi] = float("nan")
+        real = (seg[0] == 0).nonzero()[:, 0]
     launches = port.FLASH_LAUNCHES.count
     got = port.flash_sdpa(q, k, v, seg).float()[:, real]
     torch.cuda.synchronize()
     assert port.FLASH_LAUNCHES.count == launches + 1
     want = port.flash_sdpa_reference(q.float(), k.float(), v.float(), seg)[:, real]
     assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= MAX_ABS_TOL
+    assert ((got - want).norm() / want.norm()).item() <= REL_TOL
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_takes_broadcast_operands():
+    """k and v broadcast over the batch (stride 0) and a single head: the
+    tensor maps read them through their strides as they are."""
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q = torch.randn(3, 200, 1, 64, device="cuda", generator=g).bfloat16()
+    k, v = (torch.randn(1, 150, 1, 64, device="cuda", generator=g).bfloat16().expand(3, -1, -1, -1)
+            for _ in range(2))
+    got = port.flash_sdpa(q, k, v).float()
+    torch.cuda.synchronize()
+    want = port.flash_sdpa_reference(q.float(), k.float(), v.float())
     assert (got - want).abs().max().item() <= MAX_ABS_TOL
     assert ((got - want).norm() / want.norm()).item() <= REL_TOL
 
