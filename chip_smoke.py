@@ -5,7 +5,8 @@
 
 builds the port's four CUDA kernels from `labelany3d_tpu_torch/csrc/` with
 nvcc (one process per source, all at once), checks that the two attention
-kernels compiled to wgmma (HGMMA) and TMA loads (UTMALDG), holds each kernel
+kernels and the reciprocal-NN argmax compiled to wgmma (HGMMA) and TMA loads
+(UTMALDG), holds each kernel
 against its plain PyTorch version on the card, checks the fused labeling
 program on the card against the CPU, and drives two paths with random
 weights from a seed:
@@ -54,6 +55,9 @@ K2_REL_TOL = 5e-3
 # best scores agree to a few ulp of 1; indices must agree wherever the
 # plain version's best beats its runner-up by more than the score tolerance.
 K3_SCORE_TOL = 1e-5
+# K3's library yardstick materialises the bf16 score matrix: timed only
+# where it fits beside everything else (the compact round's is 17.2 GB).
+LIBRARY_SCORE_BYTES = 24e9
 # K4: the same fp32 arithmetic per angle; the yaw must agree wherever the
 # best area beats the runner-up by more than this relative margin.
 K4_REL_TOL = 1e-6
@@ -63,6 +67,7 @@ IMAGE_HW = (512, 512)
 N_IMAGES = 16
 N_REG_IMAGES = 8           # registration chain: one depth batch of 8
 REG_INSTANCES = 4
+STAGE_A_PAIRS = REG_INSTANCES * 8  # a stage-A matcher forward: 4 objects x 8 orbit views
 
 
 def _say(phase: str, **kw) -> None:
@@ -79,6 +84,32 @@ def time_cuda(fn, iters: int = 20, warmup: int = 3) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_cuda_graph(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device milliseconds per call, by CUDA events around the replay of
+    one CUDA graph of `iters` calls. For calls whose device work is shorter
+    than the host's time to launch them, where `time_cuda` would time the
+    host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -192,26 +223,38 @@ def check_flash(b: int, sq: int, sk: int, seed: int, heads: int = 12, d: int = 6
 
 
 def check_nn(pairs: int, s: int, n: int, seed: int, precision: str,
-             n_real: int | None = None, timed: bool = False, c: int = 24) -> dict:
+             n_real: int | None = None, timed: bool = False, c: int = 24,
+             negative: bool = False) -> dict:
     """K3 against its plain version on the same bf16-rounded operands:
     unit-norm descriptors, queries (pairs, s, c) against banks (pairs, n, c).
     With `n_real`, the bank rows at and beyond it hold garbage (NaN and
-    1e30). `library_ms` (`(q @ bank.T).max(-1)` in bf16, two calls) is timed
-    on one pair: at more, its score matrix outgrows the card."""
+    1e30). With `negative`, every real score is negative (bank rows in the
+    positive orthant, queries the negatives of bank rows), so a zero-filled
+    pad row that the kernel failed to mask would win. The kernel reads the
+    bank prepared once (`prepare_bank_for_nn`), as the matcher's rounds do;
+    the plain version reads the float32 bank. `library_ms`
+    (`torch.bmm(q, bank^T).max(-1)` in bf16) is timed where its score
+    matrix fits the card (one pair, the compact round)."""
     import torch
     import torch.nn.functional as F
 
     from labelany3d_tpu_torch.ops import reciprocal_nn as rnn
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = F.normalize(torch.randn(pairs, s, c, device="cuda", generator=g), dim=-1)
     bank = F.normalize(torch.randn(pairs, n, c, device="cuda", generator=g), dim=-1)
     nr = n if n_real is None else n_real
+    if negative:
+        bank = bank.abs()
+        rows = torch.randperm(nr, device="cuda", generator=g)[:s]
+        q = -bank[:, rows]
+    else:
+        q = F.normalize(torch.randn(pairs, s, c, device="cuda", generator=g), dim=-1)
     bank_p, _ = rnn.pad_bank_for_nn(bank)
     if n_real is not None:
         bank_p[:, nr::2] = float("nan")
         bank_p[:, nr + 1::2] = 1e30
-    idx, best = rnn.nn_argmax(q, bank_p, n_real=nr, precision=precision)
+    prep, _ = rnn.prepare_bank_for_nn(bank_p, precision)
+    idx, best = rnn.nn_argmax(q, prep, n_real=nr, precision=precision)
     ref_idx, ref_best = rnn.nn_argmax_reference(q, bank_p, n_real=nr, precision=precision)
     torch.cuda.synchronize()
 
@@ -235,23 +278,28 @@ def check_nn(pairs: int, s: int, n: int, seed: int, precision: str,
            "idx_differ": int(differ.sum()),
            "max_gap_where_differ": float(gap.abs().max()) if differ.any() else 0.0,
            "in_range": bool(((idx >= 0) & (idx < nr)).all())}
+    if negative:
+        res["max_best"] = float(best.max())
     res["ok"] = (res["in_range"] and res["max_abs_err"] <= K3_SCORE_TOL
-                 and res["max_gap_where_differ"] <= K3_SCORE_TOL)
+                 and res["max_gap_where_differ"] <= K3_SCORE_TOL
+                 and (not negative or res["max_best"] < 0))
     if timed:
-        res["ms"] = time_cuda(lambda: rnn.nn_argmax(q, bank_p, n_real=nr,
-                                                    precision=precision))
+        res["ms"] = time_cuda(lambda: rnn.nn_argmax(q, prep, n_real=nr, precision=precision))
         res["plain_ms"] = time_cuda(lambda: rnn.nn_argmax_reference(
             q, bank_p, n_real=nr, precision=precision), iters=3, warmup=1)
         res["library_ms"] = None
-        if pairs == 1:
-            qb, bb = q[0].bfloat16(), bank[0].bfloat16()
-            res["library_ms"] = time_cuda(lambda: (qb @ bb.T).max(1))
+        if pairs * s * n * 2 <= LIBRARY_SCORE_BYTES:
+            qb, bt = q.bfloat16(), bank.bfloat16().transpose(1, 2)
+            res["library_ms"] = time_cuda(lambda: torch.bmm(qb, bt).max(-1), iters=5)
         # Queries and banks read once (fp32, c wide), indices and scores
         # written; 2*s*n*c operations per pair and operand pass (three
         # passes for bf16x3).
         passes = 1 if precision == "bf16" else 3
         res["bound_ms"], res["bound_by"] = bound(pairs * (4 * c * (s + nr) + 8 * s),
                                                  pairs * passes * 2 * s * nr * c)
+        res["share_of_bound"] = res["bound_ms"] / res["ms"]
+        if res["library_ms"]:
+            res["ratio_to_library"] = res["ms"] / res["library_ms"]
     return res
 
 
@@ -289,8 +337,13 @@ def check_yaw(i: int, n: int, seed: int, timed: bool = False, num_angles: int = 
            "max_abs_err": float((yaw - ref).abs().max())}
     res["ok"] = res["yaw_equal_where_clear"] and res["max_rel_area_excess"] <= K4_REL_TOL
     if timed:
-        res["ms"] = time_cuda(lambda: by.yaw_minarea(pts, valid, num_angles))
-        res["plain_ms"] = time_cuda(lambda: by.yaw_minarea_reference(pts, valid, num_angles))
+        # Device time from graph replays: a call's host work (tens of
+        # microseconds) is longer than its kernel, so event timing of eager
+        # calls would time the host.
+        vm = valid.to(torch.uint8)
+        res["ms"] = time_cuda_graph(lambda: by.yaw_minarea(pts, vm, num_angles))
+        res["plain_ms"] = time_cuda_graph(lambda: by.yaw_minarea_reference(pts, vm, num_angles))
+        res["eager_ms"] = time_cuda(lambda: by.yaw_minarea(pts, valid, num_angles))
         res["library_ms"] = None
         # Points (fp32 pairs) and the mask (uint8) read once, yaws written;
         # per point and angle 4 multiplies, 2 adds and 4 min/max in fp32.
@@ -454,13 +507,23 @@ def check_scene_outputs(save_dir: str, loader, f16_overflow_ok: bool = False) ->
     return with_boxes, listed, overflowed
 
 
+NN_DESIGN = ("nn_argmax.cu: 256-query blocks of four consumer warpgroups and a TMA "
+             "producer warpgroup (setmaxnreg 112/24), bf16 bank prepared once per match, "
+             "128-row bank tiles in an 8-stage mbarrier ring (64-byte swizzle), wgmma "
+             "m64n64k16 with the query from registers, two accumulator sets a warpgroup, "
+             "max-tree epilogue with first-index search on a new best, bank split for "
+             "small launches")
+YAW_DESIGN = ("yaw_minarea.cu: a cluster of 8 blocks an instance, valid points compacted "
+              "in shared memory, 4 threads an angle, results merged through distributed "
+              "shared memory")
 KERNEL_NAMES = {"k1": "packed_attention", "k2": "flash_attention", "k3": "nn_argmax",
                 "k4": "yaw_minarea"}
 # What each kernel's device events are called in a profile: K1 and K2 are
-# one template (attn_sm90::attention_kernel) over their loaders.
-PROFILE_NAMES = {"k1": "PackedLoader", "k2": "StridedLoader", "k3": "nn_argmax",
-                 "k4": "yaw_minarea"}
-# What the Hopper design of K1 and K2 must compile to: warpgroup MMAs
+# one template (attn_sm90::attention_kernel) over their loaders; a K3 call
+# whose bank is split over blocks adds a merge kernel.
+PROFILE_NAMES = {"k1": "PackedLoader", "k2": "StridedLoader", "k3": "nn_argmax_kernel",
+                 "k3_merge": "nn_argmax_merge", "k4": "yaw_minarea"}
+# What the Hopper designs of K1, K2 and K3 must compile to: warpgroup MMAs
 # (wgmma) and TMA tile loads.
 SASS_REQUIRED = ("HGMMA", "UTMALDG")
 
@@ -575,6 +638,7 @@ def run_registration(cfg_kw: dict, tmp: str, seed: int = 3) -> dict:
     res = {}
     for c in (*counters.values(), *plains.values()):
         c.reset()
+    rnn.LAUNCHES_BY_SHAPE.clear()
     matcher.forwards = 0
     torch.cuda.reset_peak_memory_stats()
     stages: dict = {}
@@ -584,6 +648,7 @@ def run_registration(cfg_kw: dict, tmp: str, seed: int = 3) -> dict:
     res["cold_s"] = time.perf_counter() - t0
     res["launches"] = {k: c.count for k, c in counters.items()}
     res["plain_calls"] = {k: c.count for k, c in plains.items()}
+    res["k3_by_shape"] = dict(rnn.LAUNCHES_BY_SHAPE)
     res["forwards"] = matcher.forwards
     res["failures"] = list(stages["layout"].failures)
     with_boxes, listed, res["f16_overflow_boxes"] = check_registration_outputs(cold, loader)
@@ -618,6 +683,18 @@ def run_registration(cfg_kw: dict, tmp: str, seed: int = 3) -> dict:
     return res
 
 
+def k3_launches(by_shape: dict, pairs: int, s: int, precision: str = "bf16") -> int:
+    """K3 launches the registration run made at (pairs, s, precision),
+    whatever their bank split, from `rnn.LAUNCHES_BY_SHAPE`."""
+    return sum(n for (p, q, _, prec), n in by_shape.items() if (p, q, prec) == (pairs, s, precision))
+
+
+def k3_shapes_json(by_shape: dict) -> str:
+    """{"pairs x queries x chunks precision": launches}, largest first."""
+    return json.dumps({f"{p}x{q}x{c} {prec}": n
+                       for (p, q, c, prec), n in sorted(by_shape.items(), reverse=True)})
+
+
 def kernel_checks() -> dict:
     """K2, K3 and K4 against their plain versions at the registration
     path's shapes; raises SystemExit on any disagreement. Returns the timed
@@ -635,17 +712,26 @@ def kernel_checks() -> dict:
         raise SystemExit(f"K2 disagrees with its plain version: {bad}")
 
     # K3: round 1 of a stage-A matcher forward (32 pairs, 4096 queries each,
-    # against 512^2 banks), a compacted round (1024 queries), one pair (to
-    # time the library yardstick), and a pre-padded bank with garbage beyond
-    # n_real.
+    # against 512^2 banks), a compacted round (1024 queries, with its library
+    # yardstick), the same two rounds of a stage-B forward (at most 4 pairs:
+    # the bank split over blocks), one pair (with its yardstick), a
+    # pre-padded bank with garbage beyond n_real, and all-negative scores
+    # with an n_real that ends inside a bank tile.
     n = IMAGE_HW[0] * IMAGE_HW[1]
-    pairs = REG_INSTANCES * 8
+    pairs = STAGE_A_PAIRS
     k3 = {}
     for prec in ("bf16", "bf16x3"):
         k3[f"path_{prec}"] = check_nn(pairs, 4096, n, seed=21, precision=prec, timed=True)
-        k3[f"compact_{prec}"] = check_nn(pairs, 1024, n, seed=22, precision=prec)
+        k3[f"compact_{prec}"] = check_nn(pairs, 1024, n, seed=22, precision=prec,
+                                         timed=prec == "bf16")
+        if prec == "bf16":
+            k3["stage_b_path_bf16"] = check_nn(4, 4096, n, seed=26, precision=prec, timed=True)
+            k3["stage_b_compact_bf16"] = check_nn(4, 1024, n, seed=27, precision=prec,
+                                                  timed=True)
         k3[f"one_pair_{prec}"] = check_nn(1, 4096, n, seed=24, precision=prec, timed=True)
         k3[f"padded_{prec}"] = check_nn(2, 1024, n, seed=23, precision=prec, n_real=n - 37)
+        k3[f"negative_{prec}"] = check_nn(2, 1000, n, seed=25, precision=prec, n_real=n - 37,
+                                          negative=True)
     for name, r in k3.items():
         _say(f"K3:{name}", **r, score_tol=K3_SCORE_TOL)
     bad = [name for name, r in k3.items() if not r["ok"]]
@@ -654,7 +740,8 @@ def kernel_checks() -> dict:
 
     # K4: the layout stage's box fit (16 slots x 500 samples) and the fast
     # route's (8 images x 16 instances, 512 points).
-    k4 = {"layout": check_yaw(16, 500, seed=31, timed=True), "fast": check_yaw(128, 512, seed=32)}
+    k4 = {"layout": check_yaw(16, 500, seed=31, timed=True),
+          "fast": check_yaw(128, 512, seed=32, timed=True)}
     for name, r in k4.items():
         _say(f"K4:{name}", **r, rel_tol=K4_REL_TOL)
     bad = [name for name, r in k4.items() if not r["ok"]]
@@ -702,7 +789,7 @@ def main() -> int:
     _say("build", s=build_s, kernels=len(logs))
     tool = cuobjdump()
     sass = {}
-    for k in ("k1", "k2"):
+    for k in ("k1", "k2", "k3"):
         if tool is None:
             sass[k] = "not measured (no cuobjdump)"
             continue
@@ -799,6 +886,7 @@ def main() -> int:
         _say("registration:cold", s=reg["cold_s"], forwards=reg["forwards"],
              launches=json.dumps(reg["launches"]), want=json.dumps(reg["want"]),
              plain_calls=json.dumps(reg["plain_calls"]), failures=json.dumps(reg["failures"]),
+             k3_launches_by_shape=k3_shapes_json(reg["k3_by_shape"]),
              scenes_with_boxes=reg["scenes_with_boxes"], coco3d_images=reg["coco3d_images"],
              f16_overflow_boxes=reg["f16_overflow_boxes"])
         p = reg["profile"]
@@ -843,14 +931,28 @@ def main() -> int:
         row("nn_argmax", "nn_argmax.cu", "labelany3d_tpu/ops/reciprocal_nn.py:29",
             reg["launches"]["k3"], k3["path_bf16"], max(r["max_abs_err"] for r in k3.values()),
             shape="query (32, 4096, 24) x bank (32, 262144, 24), bf16 operands",
-            library="none at 32 pairs (a 68 GB score matrix); one pair: see one_pair",
-            **{name: {k: k3[key][k] for k in
-                      ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-               for name, key in (("bf16x3", "path_bf16x3"), ("one_pair", "one_pair_bf16"),
-                                 ("one_pair_bf16x3", "one_pair_bf16x3"))}),
+            design=NN_DESIGN, sass=sass["k3"], share_of_bound=k3["path_bf16"]["share_of_bound"],
+            library="none at 32 x 4096 (a 68 GB score matrix); see compact and one_pair",
+            # Launches counted by the wrapper in the registration run: at
+            # this row's shape, and by (pairs x queries x chunks precision).
+            launches_at_shape=k3_launches(reg["k3_by_shape"], STAGE_A_PAIRS, 4096),
+            launches_by_shape=json.loads(k3_shapes_json(reg["k3_by_shape"])),
+            **{name: {"launches_at_shape": k3_launches(reg["k3_by_shape"], *at),
+                      **{k: k3[key].get(k) for k in timed}}
+               for name, key, at in (
+                   ("compact", "compact_bf16", (STAGE_A_PAIRS, 1024)),
+                   ("bf16x3", "path_bf16x3", (STAGE_A_PAIRS, 4096, "bf16x3")),
+                   ("stage_b_path", "stage_b_path_bf16", (4, 4096)),
+                   ("stage_b_compact", "stage_b_compact_bf16", (4, 1024)),
+                   ("one_pair", "one_pair_bf16", (1, 4096)),
+                   ("one_pair_bf16x3", "one_pair_bf16x3", (1, 4096, "bf16x3")))}),
         row("yaw_minarea", "yaw_minarea.cu", "labelany3d_tpu/ops/boxfit_pallas.py:54",
             reg["launches"]["k4"], k4["layout"], max(r["max_abs_err"] for r in k4.values()),
-            shape="points (16, 500, 2), 512 angles"),
+            shape="points (16, 500, 2), 512 angles", design=YAW_DESIGN,
+            timing="device time from CUDA-graph replays; eager_ms is the eager call's",
+            eager_ms=k4["layout"]["eager_ms"],
+            fast={k: k4["fast"][k]
+                  for k in ("ms", "plain_ms", "eager_ms", "bound_ms", "bound_by")}),
     ]}
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -56,19 +56,16 @@
 // overlap needs S and P in separate registers: 64 more a thread than the
 // 160 that three consumer warpgroups leave.
 //
-// Tensor maps are encoded on the host per call and passed by value as
-// __grid_constant__ kernel parameters. cuTensorMapEncodeTiled is reached
-// through cudaGetDriverEntryPoint, so the build needs no -lcuda.
+// The generic Hopper pieces (mbarriers, TMA, wgmma fences and descriptors,
+// tensor-map encoding) are in sm90_common.cuh.
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums; no driver symbol is linked
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "sm90_common.cuh"
 
 namespace attn_sm90 {
+
+using namespace sm90;
 
 constexpr int kConsumerWGs = 3;              // consumer warpgroups, 64 rows each
 constexpr int kBlockM = 64 * kConsumerWGs;   // query rows per block
@@ -94,89 +91,6 @@ constexpr int kSmemBytes = kQBytes + 2 * kStages * kTileBytes + kBarrierBytes + 
 
 // ---------------------------------------------------------------- PTX ---
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
-                                             int c2) {
-  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
-               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2)
-               : "memory");
-}
-
-__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
-                                             int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
-      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store_wait() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
-}
-
-// Generic-proxy writes to shared memory made visible to the async proxy
-// (wgmma operand reads, TMA stores).
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
 __device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
@@ -189,43 +103,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// wgmma shared-memory descriptor for a tile written by TMA with the
-// 128-byte swizzle (rows of 128 bytes, 8-row atoms of 1024 bytes):
-// start address, leading byte offset, stride byte offset (16-byte units),
-// layout type 1 = 128-byte swizzle. K-major operands (Q, K): the stride
-// byte offset steps 8 rows (1024 bytes); a k-step of 16 bf16 advances the
-// start address by 32 bytes inside the atom. MN-major V: the stride byte
-// offset steps 8 keys along K (1024 bytes); N = 64 is one 128-byte row, so
-// the leading byte offset is never used; a k-step of 16 keys advances the
-// start address by 16 rows (2048 bytes).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma that owns them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 // D (64 x 128, fp32) = A (64 x 16, smem, K-major) * B (16 x 128, smem,
@@ -296,12 +173,6 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0, 
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
-
-// Selects one of the softmax's two compiled versions (masked or not).
-template <bool B>
-struct Flag {
-  static constexpr bool value = B;
-};
 
 // Reduce v[0..15] with `op` as a tree of depth 4 (written out, so every
 // index is a constant and v stays in registers).
@@ -553,47 +424,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     ld.store_o(sq_wg, q0 + 64 * wg, h, b);
     tma_store_wait();
   }
-}
-
-// ---------------------------------------------------------------- host ---
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled_fn() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-    }
-  }
-  return fn;
-}
-
-// A bf16 tensor map with the 128-byte swizzle over `rank` dims (innermost
-// first), byte strides of dims 1.. and a box; out-of-bounds elements read
-// as zeros and are not written. Returns 0, or minus the CUresult.
-inline int encode_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-                      const cuuint64_t* strides, const cuuint32_t* box) {
-  const EncodeTiledFn fn = encode_tiled_fn();
-  if (fn == nullptr) return -static_cast<int>(CUDA_ERROR_NOT_FOUND);
-  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
 }
 
 // One launch on `stream`; returns cudaGetLastError() so a refused launch

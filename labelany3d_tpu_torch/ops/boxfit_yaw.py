@@ -35,7 +35,7 @@ def footprint_areas(points_xz: torch.Tensor, valid: torch.Tensor,
     u = x * c + z * s                             # (I, N, A)
     w = -x * s + z * c
     vm = valid.bool()[..., None]
-    big = torch.tensor(_BIG, dtype=torch.float32, device=pts.device)
+    big = torch.full((), _BIG, dtype=torch.float32, device=pts.device)
     return ((torch.where(vm, u, -big).amax(1) - torch.where(vm, u, big).amin(1))
             * (torch.where(vm, w, -big).amax(1) - torch.where(vm, w, big).amin(1)))
 
@@ -69,9 +69,9 @@ def yaw_minarea_kernel(points_xz: torch.Tensor, valid: torch.Tensor,
         raise ValueError(f"need points (I, N, 2) and valid (I, N), got "
                          f"{tuple(points_xz.shape)} and {tuple(valid.shape)}")
     i, n, _ = points_xz.shape
-    if not 1 <= n <= 4096 or not 1 <= num_angles <= 1024:
-        raise ValueError(f"the kernel takes 1 <= N <= 4096 points and 1 <= A <= 1024 "
-                         f"angles, got N={n}, A={num_angles}")
+    if not 1 <= i <= 65535 or not 1 <= n <= 4096 or not 1 <= num_angles <= 1024:
+        raise ValueError(f"the kernel takes 1 <= I <= 65535 instances, 1 <= N <= 4096 points "
+                         f"and 1 <= A <= 1024 angles, got I={i}, N={n}, A={num_angles}")
     pts = points_xz.float().contiguous()
     vm = valid.to(torch.uint8).contiguous()
     yaw = torch.empty((i,), dtype=torch.float32, device=pts.device)

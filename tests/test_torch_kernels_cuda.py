@@ -176,3 +176,157 @@ def test_yaw_minarea_kernel_matches_plain(i, n):
     at_k = area.gather(1, torch.round(yaw / ((math.pi / 2) / 512)).long()[:, None])[:, 0]
     excess = ((at_k - top2[:, 0]) / top2[:, 0].abs().clamp_min(1e-30))[~clear]
     assert excess.numel() == 0 or excess.max().item() <= 1e-6
+
+
+def _unit(g, *shape):
+    return torch.nn.functional.normalize(torch.randn(*shape, device="cuda", generator=g), dim=-1)
+
+
+def _nn_check(q, bank_p, n_real, precision):
+    """The kernel on the prepared bank against the plain version on the
+    float32 one: scores within 1e-5, indices equal wherever the plain best
+    beats the runner-up by more than that."""
+    from labelany3d_tpu_torch.ops import reciprocal_nn as rnn
+
+    prep, _ = rnn.prepare_bank_for_nn(bank_p, precision)
+    launches = rnn.KERNEL_LAUNCHES.count
+    idx, best = rnn.nn_argmax(q, prep, n_real=n_real, precision=precision)
+    torch.cuda.synchronize()
+    assert rnn.KERNEL_LAUNCHES.count == launches + 1
+    ref_idx, ref_best = rnn.nn_argmax_reference(q, bank_p, n_real=n_real, precision=precision)
+    assert ((idx >= 0) & (idx < n_real)).all()
+    assert (best - ref_best).abs().max().item() <= 1e-5
+    bh, bl = rnn._bank_parts(bank_p[:, :n_real], q.shape[-1], precision)
+    qh, ql = rnn._split_bf16(q)
+    sim = torch.einsum("psc,pnc->psn", qh, bh)
+    if bl is not None:
+        sim += torch.einsum("psc,pnc->psn", qh, bl) + torch.einsum("psc,pnc->psn", ql, bh)
+    top2 = sim.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 1e-5
+    assert torch.equal(idx[clear], ref_idx[clear])
+    return idx, best
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16", "bf16x3"])
+@pytest.mark.parametrize("pairs,s,n,n_real,negative", [
+    (2, 1, 4096, 4096, False),       # S = 1
+    (2, 191, 4096, 4000, False),     # S no multiple of a block's 256 query rows
+    (2, 257, 4096, 4096, False),     # one query row past a block
+    (3, 300, 4096, 128, False),      # n_real = one bank tile
+    (3, 300, 4096, 129, False),      # one bank tile and one row
+    (2, 500, 70001, 69964, True),    # every score negative, n_real inside a tile
+    (1, 4096, 70000, 70000, False),  # P = 1: the bank split over blocks
+    (32, 1024, 8192, 8000, False),   # P = 32, the matcher's pairs
+])
+def test_nn_argmax_kernel_edges(precision, pairs, s, n, n_real, negative):
+    """Tile and block edges of the Hopper design. With `negative`, bank rows
+    lie in the positive orthant and queries are negated bank rows: a
+    zero-filled row past n_real, left unmasked, would score 0 and win."""
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    bank = _unit(g, pairs, n, 24)
+    if negative:
+        bank = bank.abs()
+        q = -bank[:, torch.randperm(n_real, device="cuda", generator=g)[:s]]
+    else:
+        q = _unit(g, pairs, s, 24)
+    bank_p = torch.nn.functional.pad(bank, (0, 8))
+    bank_p[:, n_real:] = float("nan")
+    _, best = _nn_check(q, bank_p, n_real, precision)
+    if negative:
+        assert best.max().item() < 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16", "bf16x3"])
+@pytest.mark.parametrize("where", ["tile", "split"])
+def test_nn_argmax_kernel_first_of_duplicates(precision, where):
+    """Bank rows repeated on both sides of every tile boundary, with 32
+    pairs (one chunk) and with one pair (the bank cut over blocks, whose
+    chunks hold whole tiles and are merged): every query equal to such a
+    row gets the first of the two, across tiles and across chunks."""
+    from labelany3d_tpu_torch.ops import reciprocal_nn as rnn
+
+    _cuda_or_skip()
+    pairs, s, n = (32, 1024, 4096) if where == "tile" else (1, 64, 4096)
+    chunks = rnn.bank_chunks(pairs, s, n)
+    assert chunks == 1 if where == "tile" else chunks > 1
+    g = torch.Generator(device="cuda").manual_seed(6)
+    bank = _unit(g, pairs, n, 24)
+    firsts = torch.arange(127, n - 1, 128, device="cuda")  # the last row of each tile
+    bank[:, firsts + 1] = bank[:, firsts]
+    want = firsts[torch.arange(s, device="cuda") % firsts.numel()]
+    q = bank[:, want]
+    idx, _ = _nn_check(q, torch.nn.functional.pad(bank, (0, 8)), n, precision)
+    assert (idx == want.to(idx.dtype)).all()
+
+
+@pytest.mark.cuda
+def test_nn_argmax_launches_by_shape():
+    """Each launch is counted once, under its (pairs, queries, chunks,
+    precision); the matcher's 32-pair rounds run one chunk, one pair
+    splits the bank."""
+    from labelany3d_tpu_torch.ops import reciprocal_nn as rnn
+
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    n = 262144
+    assert rnn.bank_chunks(32, 4096, n) == rnn.bank_chunks(32, 1024, n) == 1
+    bank, _ = rnn.prepare_bank_for_nn(_unit(g, 1, 5000, 24))
+    rnn.LAUNCHES_BY_SHAPE.clear()
+    for s in (1, 300, 300):
+        rnn.nn_argmax(_unit(g, 1, s, 24), bank)
+    chunks = rnn.bank_chunks(1, 300, 5000)
+    assert chunks > 1
+    assert dict(rnn.LAUNCHES_BY_SHAPE) == {(1, 1, rnn.bank_chunks(1, 1, 5000), "bf16"): 1,
+                                           (1, 300, chunks, "bf16"): 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i", [1, 128])
+def test_yaw_minarea_kernel_degenerate_instances(i):
+    """An instance with one valid point has area 0 at every angle, so yaw 0
+    across all of its blocks; one with none has infinite area everywhere,
+    yaw 0 too. Every other instance matches the plain version."""
+    from labelany3d_tpu_torch.ops import boxfit_yaw as by
+
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    pts = torch.randn(i, 500, 2, device="cuda", generator=g)
+    valid = torch.rand(i, 500, device="cuda", generator=g) > 0.3
+    valid[0] = False
+    valid[0, 7] = True  # one valid point
+    if i > 1:
+        valid[1] = False  # none
+    yaw = by.yaw_minarea(pts, valid)
+    torch.cuda.synchronize()
+    ref = by.yaw_minarea_reference(pts, valid)
+    assert yaw[0].item() == 0.0 and ref[0].item() == 0.0
+    if i > 1:
+        assert yaw[1].item() == 0.0 and ref[1].item() == 0.0
+    area = by.footprint_areas(pts, valid)
+    top2 = area.topk(2, dim=-1, largest=False).values
+    clear = ~torch.isfinite(top2[:, 0]) | ((top2[:, 1] - top2[:, 0]) > 1e-6 * top2[:, 0].abs())
+    assert torch.equal(yaw[clear], ref[clear])
+
+
+@pytest.mark.cuda
+def test_reciprocal_nn_match_prepares_each_bank_once(monkeypatch):
+    """A match prepares its two banks once and hands them to all of its
+    kernel launches: 2 for round 1 and 2 for each later round."""
+    from labelany3d_tpu_torch.ops import reciprocal_nn as rnn
+
+    _cuda_or_skip()
+    calls = []
+    prepare = rnn.prepare_bank_for_nn
+    monkeypatch.setattr(rnn, "prepare_bank_for_nn",
+                        lambda *a, **k: calls.append(1) or prepare(*a, **k))
+    g = torch.Generator(device="cuda").manual_seed(8)
+    d0, d1 = _unit(g, 3, 64, 48, 24), _unit(g, 3, 64, 48, 24)
+    launches = rnn.KERNEL_LAUNCHES.count
+    res = rnn.reciprocal_nn_match(d0, d1, subsample=4, compact=64)
+    torch.cuda.synchronize()
+    assert len(calls) == 2
+    assert rnn.KERNEL_LAUNCHES.count - launches == 2 + 2 * 5
+    assert res.xy0.shape == (3, 16 * 12, 2) and res.valid.dtype == torch.bool
