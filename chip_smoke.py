@@ -16,7 +16,14 @@ weights from a seed:
   * the registration chain depth -> crops -> reconstruction -> layout ->
     export over 8 synthetic 512x512 images with 4 objects each, at the
     `large` depth preset, the full-width `MatcherConfig()` matcher (ViT-L
-    encoder, 12-block decoder of width 768) and `bbox_method=minarea_pallas`.
+    encoder, 12-block decoder of width 768) and `bbox_method=minarea_pallas`;
+  * the same chain at the checkpoint-faithful models: the `vitl_reference`
+    depth preset (MoGe ViT-L with the released head; the 35-patch DepthPro
+    at 1536 px with its image and FoV encoders) and
+    `MatcherConfig.mast3r_vitl()` (CroCo ViT-L/16 rope encoder, whose
+    attention runs K2, and the CatMLP+DPT head), with weights made as
+    released torch state dicts from a seed and loaded through the port's
+    converters (`models/convert.py`) and `flax_to_state_dict`.
 
 Each phase prints one line; any failure exits non-zero. Without CUDA, or
 without the rest of the repository beside it, it exits non-zero and prints
@@ -70,8 +77,13 @@ REG_INSTANCES = 4
 STAGE_A_PAIRS = REG_INSTANCES * 8  # a stage-A matcher forward: 4 objects x 8 orbit views
 
 
+_T0 = time.perf_counter()
+
+
 def _say(phase: str, **kw) -> None:
-    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
+    """One line per phase, with the seconds since the script started."""
+    print(f"[{phase}] at_s={time.perf_counter() - _T0:.1f} "
+          + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
 
 
 def time_cuda(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -408,6 +420,194 @@ class SyntheticLoader:
         return len(self.images)
 
 
+class SyntheticState(dict):
+    """A torch-named state dict of numpy float32 arrays, as a released
+    checkpoint holds after `load_torch_checkpoint`: norm scales 1, biases 0,
+    every other weight N(0, std^2) from a seeded numpy generator."""
+
+    def __init__(self, seed: int, std: float = 0.02):
+        import numpy as np
+
+        super().__init__()
+        self.np = np
+        self.rng = np.random.default_rng(seed)
+        self.std = np.float32(std)
+
+    def rand(self, name: str, *shape) -> None:
+        self[name] = self.rng.standard_normal(shape, dtype=self.np.float32) * self.std
+
+    def const(self, name: str, value: float, *shape) -> None:
+        self[name] = self.np.full(shape, value, self.np.float32)
+
+    def norm(self, pre: str, c: int) -> None:
+        self.const(pre + "weight", 1.0, c)
+        self.const(pre + "bias", 0.0, c)
+
+    def linear(self, pre: str, n_in: int, n_out: int) -> None:
+        self.rand(pre + "weight", n_out, n_in)
+        self.const(pre + "bias", 0.0, n_out)
+
+    def conv(self, pre: str, n_in: int, n_out: int, k: int, bias: bool = True) -> None:
+        self.rand(pre + "weight", n_out, n_in, k, k)
+        if bias:
+            self.const(pre + "bias", 0.0, n_out)
+
+    def deconv(self, pre: str, n_in: int, n_out: int, k: int, bias: bool = True) -> None:
+        self.rand(pre + "weight", n_in, n_out, k, k)  # ConvTranspose2d: (in, out, k, k)
+        if bias:
+            self.const(pre + "bias", 0.0, n_out)
+
+    def vit(self, pre: str, cfg, n_pos: int = 0, blocks: str = "blocks.",
+            final_norm: str = "norm.") -> None:
+        """A DINOv2 (timm) ViT, or with `n_pos` 0 and croco's names a CroCo
+        encoder without position embeddings."""
+        c, p = cfg.width, cfg.patch_size
+        hid = int(c * cfg.mlp_ratio)
+        self.conv(pre + "patch_embed.proj.", 3, c, p)
+        if n_pos:
+            self.rand(pre + "pos_embed", 1, int(cfg.use_class_token) + n_pos, c)
+        if cfg.use_class_token:
+            self.rand(pre + "cls_token", 1, 1, c)
+        if cfg.num_register_tokens:
+            self.rand(pre + "register_tokens", 1, cfg.num_register_tokens, c)
+        for i in range(cfg.depth):
+            b = f"{pre}{blocks}{i}."
+            self.norm(b + "norm1.", c)
+            self.norm(b + "norm2.", c)
+            self.linear(b + "attn.qkv.", c, 3 * c)
+            self.linear(b + "attn.proj.", c, c)
+            self.linear(b + "mlp.fc1.", c, hid)
+            self.linear(b + "mlp.fc2.", hid, c)
+            if cfg.layerscale_init is not None:
+                self.rand(b + "ls1.gamma", c)
+                self.rand(b + "ls2.gamma", c)
+        self.norm(pre + final_norm, c)
+
+
+def released_moge_state(cfg, seed: int = 0, std: float = 0.02) -> dict:
+    """A MoGe release's names and shapes (`backbone.*`, `head.*`) for a
+    `MoGeConfig` with the reference head, pos-embed on `cfg.backbone.pos_grid`."""
+    st = SyntheticState(seed, std)
+    bb = cfg.backbone
+    gh, gw = bb.pos_grid
+    st.vit("backbone.", bb, n_pos=gh * gw)
+
+    def res_block(pre, c):
+        st.norm(pre + "layers.0.", c)
+        st.conv(pre + "layers.2.", c, c, 3)
+        st.norm(pre + "layers.3.", c)
+        st.conv(pre + "layers.5.", c, c, 3)
+
+    for i in range(len(bb.out_indices)):
+        st.conv(f"head.projects.{i}.", bb.width, cfg.dim_proj, 1)
+    ch = cfg.dim_proj
+    for i, out in enumerate(cfg.dim_upsample):
+        pre = f"head.upsample_blocks.{i}."
+        st.deconv(pre + "0.0.", ch + 2, out, 2)
+        st.conv(pre + "0.1.", out, out, 3)
+        for r in range(cfg.num_res_blocks):
+            res_block(pre + f"{1 + r}.", out)
+        ch = out
+    dims = [3, 1] if cfg.output_mask and cfg.split_head else [4 if cfg.output_mask else 3]
+    cc = cfg.last_conv_channels
+    for j, d in enumerate(dims):
+        pre = f"head.output_block.{j}." if len(dims) > 1 else "head.output_block."
+        st.conv(pre + "0.", ch + 2, cc, 3)
+        for r in range(cfg.last_res_blocks):
+            res_block(pre + f"{1 + r}.", cc)
+        st.conv(pre + f"{cfg.last_res_blocks + 2}.", cc, d, cfg.last_conv_size)
+    return st
+
+
+def released_depth_pro_state(cfg, seed: int = 1, std: float = 0.02) -> dict:
+    """The DepthPro release's names and shapes (`depth_pro.pt`) for a
+    `DepthPro35Config`."""
+    st = SyntheticState(seed, std)
+    gh = cfg.patch_res // cfg.patch_encoder.patch_size
+    st.vit("encoder.patch_encoder.", cfg.patch_encoder, n_pos=gh * gh)
+    st.vit("encoder.image_encoder.", cfg.image_encoder, n_pos=gh * gh)
+    c, de, df = cfg.patch_encoder.width, cfg.dims_encoder, cfg.decoder_features
+    for name, dim_int, dim_out, n_up in (("upsample_latent0", de[0], df, 3),
+                                         ("upsample_latent1", de[0], de[0], 2),
+                                         ("upsample0", de[1], de[1], 1),
+                                         ("upsample1", de[2], de[2], 1),
+                                         ("upsample2", de[3], de[3], 1)):
+        st.conv(f"encoder.{name}.0.", c, dim_int, 1, bias=False)
+        for i in range(n_up):
+            st.deconv(f"encoder.{name}.{i + 1}.", dim_int if i == 0 else dim_out, dim_out, 2,
+                      bias=False)
+    st.deconv("encoder.upsample_lowres.", cfg.image_encoder.width, de[3], 2)
+    st.conv("encoder.fuse_lowres.", 2 * de[3], de[3], 1)
+    for i, d in enumerate(de, start=1):
+        st.conv(f"decoder.convs.{i}.", d, df, 3, bias=False)
+    for i in range(5):
+        pre = f"decoder.fusions.{i}."
+        for unit in ("resnet1", "resnet2"):
+            st.conv(f"{pre}{unit}.residual.1.", df, df, 3)
+            st.conv(f"{pre}{unit}.residual.3.", df, df, 3)
+        if i:
+            st.deconv(pre + "deconv.", df, df, 2, bias=False)
+        st.conv(pre + "out_conv.", df, df, 1)
+    st.conv("head.0.", df, df // 2, 3)
+    st.deconv("head.1.", df // 2, df // 2, 2)
+    st.conv("head.2.", df // 2, cfg.last_dims[0], 3)
+    st.conv("head.4.", cfg.last_dims[0], cfg.last_dims[1], 1)
+    if cfg.fov_encoder is not None:
+        st.vit("fov.encoder.0.", cfg.fov_encoder, n_pos=gh * gh)
+        st.linear("fov.encoder.1.", cfg.fov_encoder.width, df // 2)
+        st.conv("fov.downsample.0.", df, df // 2, 3)
+        st.conv("fov.head.0.", df // 2, df // 4, 3)
+        st.conv("fov.head.2.", df // 4, max(df // 8, 1), 3)
+        st.conv("fov.head.4.", max(df // 8, 1), 1, cfg.fov_final_kernel)
+    return st
+
+
+def released_mast3r_state(cfg, seed: int = 2, std: float = 0.02) -> dict:
+    """A MASt3R release's names and shapes (croco encoder and decoders,
+    `downstream_head1/2`) for a `MatcherConfig` with the catmlpdpt head."""
+    st = SyntheticState(seed, std)
+    st.vit("", cfg.encoder, blocks="enc_blocks.", final_norm="enc_norm.")
+    ew, dw = cfg.encoder.width, cfg.dec_width
+    st.linear("decoder_embed.", ew, dw)
+    st.norm("dec_norm.", dw)
+    for blocks in ("dec_blocks.", "dec_blocks2."):
+        for i in range(cfg.dec_depth):
+            pre = f"{blocks}{i}."
+            for n in ("norm1.", "norm2.", "norm3.", "norm_y."):
+                st.norm(pre + n, dw)
+            st.linear(pre + "attn.qkv.", dw, 3 * dw)
+            st.linear(pre + "attn.proj.", dw, dw)
+            for n in ("projq.", "projk.", "projv.", "proj."):
+                st.linear(pre + "cross_attn." + n, dw, dw)
+            st.linear(pre + "mlp.fc1.", dw, 4 * dw)
+            st.linear(pre + "mlp.fc2.", 4 * dw, dw)
+    ld, fd, p = cfg.layer_dims, cfg.feature_dim, cfg.encoder.patch_size
+    for head in ("downstream_head1.", "downstream_head2."):
+        act = head + "dpt.act_postprocess."
+        st.conv(act + "0.0.", ew, ld[0], 1)
+        st.deconv(act + "0.1.", ld[0], ld[0], 4)
+        st.conv(act + "1.0.", dw, ld[1], 1)
+        st.deconv(act + "1.1.", ld[1], ld[1], 2)
+        st.conv(act + "2.0.", dw, ld[2], 1)
+        st.conv(act + "3.0.", dw, ld[3], 1)
+        st.conv(act + "3.1.", ld[3], ld[3], 3)
+        for i in range(4):
+            st.conv(f"{head}dpt.scratch.layer{i + 1}_rn.", ld[i], fd, 3, bias=False)
+        for k in range(1, 5):
+            for unit in ("resConfUnit1", "resConfUnit2"):
+                st.conv(f"{head}dpt.scratch.refinenet{k}.{unit}.conv1.", fd, fd, 3)
+                st.conv(f"{head}dpt.scratch.refinenet{k}.{unit}.conv2.", fd, fd, 3)
+            st.conv(f"{head}dpt.scratch.refinenet{k}.out_conv.", fd, fd, 1)
+        st.conv(head + "dpt.head.0.", fd, fd // 2, 3)
+        st.conv(head + "dpt.head.2.", fd // 2, cfg.last_dim, 3)
+        st.conv(head + "dpt.head.4.", cfg.last_dim, 4, 1)
+        idim = ew + dw
+        st.linear(head + "head_local_features.fc1.", idim, 4 * idim)
+        st.linear(head + "head_local_features.fc2.", 4 * idim,
+                  (cfg.desc_dim + int(cfg.two_confs)) * p * p)
+    return st
+
+
 def check_labeling(device: str, b: int = 8, hw=IMAGE_HW, n_inst: int = 16,
                    n_pts: int = 512) -> dict:
     """The fused labeling program on `device` against the CPU, same draws."""
@@ -601,9 +801,15 @@ def check_registration_outputs(save_dir: str, loader) -> tuple:
     return check_scene_outputs(save_dir, loader, f16_overflow_ok=True)
 
 
-def run_registration(cfg_kw: dict, tmp: str, seed: int = 3) -> dict:
+def run_registration(cfg_kw: dict, tmp: str, seed: int = 3, name: str = "reg",
+                     depth_kw: dict | None = None, matcher_cfg=None,
+                     matcher_params=None) -> dict:
     """The registration chain on the card: cold pass (models built, first
-    launches; launch counts read here), warm pass (timed), traced pass."""
+    launches; launch counts read here), warm pass (timed), traced pass.
+    `depth_kw` goes to the registry's depth factory (default: the `large`
+    preset); `matcher_cfg` and `matcher_params` to `TorchMatcherBackend`
+    (default: the full-width `MatcherConfig()`, random weights). Output
+    directories are `<tmp>/<name>_{cold,warm,prof}`."""
     import torch
 
     from labelany3d_tpu_torch.ops import attention as att
@@ -619,9 +825,11 @@ def run_registration(cfg_kw: dict, tmp: str, seed: int = 3) -> dict:
     loader = SyntheticLoader(N_REG_IMAGES, IMAGE_HW, seed=seed, min_inst=REG_INSTANCES,
                              max_inst=REG_INSTANCES)
     source = ArrayImageSource(loader.pixels)
-    backend = default_registry().get("depth", preset="large", pin_hw=cfg.bucket_sizes()[0],
-                                     device="cuda", seed=cfg.seed)
-    matcher = TorchMatcherBackend(tiny=False, seed=cfg.seed, device="cuda")
+    backend = default_registry().get("depth", **(depth_kw or {"preset": "large"}),
+                                     pin_hw=cfg.bucket_sizes()[0], device="cuda",
+                                     seed=cfg.seed)
+    matcher = TorchMatcherBackend(cfg=matcher_cfg, params=matcher_params, tiny=False,
+                                  seed=cfg.seed, device="cuda")
     chain = ("depth", "crops", "reconstruction", "layout", "export")
     counters = {"k1": att.KERNEL_LAUNCHES, "k2": att.FLASH_LAUNCHES,
                 "k3": rnn.KERNEL_LAUNCHES, "k4": by.KERNEL_LAUNCHES}
@@ -629,8 +837,8 @@ def run_registration(cfg_kw: dict, tmp: str, seed: int = 3) -> dict:
               "k4": by.PLAIN_CALLS}
 
     def run(out_dir, timer=None, stages=None):
-        for name in chain:
-            run_stages(name, cfg, loader, source, out_dir, "val", 0, N_REG_IMAGES,
+        for stage in chain:
+            run_stages(stage, cfg, loader, source, out_dir, "val", 0, N_REG_IMAGES,
                        backend=backend, matcher=matcher, device="cuda", timer=timer,
                        stages=stages)
         torch.cuda.synchronize()
@@ -643,7 +851,7 @@ def run_registration(cfg_kw: dict, tmp: str, seed: int = 3) -> dict:
     torch.cuda.reset_peak_memory_stats()
     stages: dict = {}
     t0 = time.perf_counter()
-    cold = os.path.join(tmp, "reg_cold")
+    cold = os.path.join(tmp, f"{name}_cold")
     run(cold, stages=stages)
     res["cold_s"] = time.perf_counter() - t0
     res["launches"] = {k: c.count for k, c in counters.items()}
@@ -657,30 +865,64 @@ def run_registration(cfg_kw: dict, tmp: str, seed: int = 3) -> dict:
 
     placed = sum((Path(cold) / "val" / scene_dir_name(i["file_name"]) / "reconstruction"
                   / "full_scene.glb").exists() for i in loader.images)
-    # One MoGe and one DepthPro forward per depth batch.
+    # Per depth batch one forward of each depth ViT: MoGe's, and DepthPro's
+    # (the 2x2-tile model's one, or the 35-patch model's patch, image and
+    # FoV encoders); learned position embeddings run K1 in every block.
+    dp = backend.dp_cfg
+    depth_vits = ([dp.patch_encoder, dp.image_encoder, dp.fov_encoder] if backend._dp35
+                  else [dp.backbone])
     depth_k1 = (-(-N_REG_IMAGES // cfg.batch_size)
-                * (backend.moge_cfg.backbone.depth + backend.dp_cfg.backbone.depth))
-    enc = matcher.cfg.encoder.depth
-    dec = matcher.cfg.dec_depth
-    res["want"] = {"k1": depth_k1 + enc * res["forwards"], "k2": 4 * dec * res["forwards"],
-                   "k3": 12 * res["forwards"], "k4": placed}
+                * sum(v.depth for v in [backend.moge_cfg.backbone, *depth_vits] if v))
+    # The matcher's encoder runs K1 with learned positions, K2 with rope;
+    # each decoder block's two streams run K2 for self- and cross-attention.
+    enc = matcher.cfg.encoder
+    enc_k1 = enc.depth if enc.pos_embed == "learned" else 0
+    fwd = res["forwards"]
+    res["want"] = {"k1": depth_k1 + enc_k1 * fwd,
+                   "k2": (enc.depth - enc_k1 + 4 * matcher.cfg.dec_depth) * fwd,
+                   "k3": 12 * fwd, "k4": placed}
     res["ok"] = (res["launches"] == res["want"] and not any(res["plain_calls"].values())
-                 and not res["failures"] and res["forwards"] > 0
+                 and not res["failures"] and fwd > 0
                  and with_boxes == listed and len(with_boxes) == N_REG_IMAGES)
 
     timer = StageTimer()
     t0 = time.perf_counter()
-    run(os.path.join(tmp, "reg_warm"), timer=timer)
+    run(os.path.join(tmp, f"{name}_warm"), timer=timer)
     warm_s = time.perf_counter() - t0
     res["warm_s"] = warm_s
     res["images_per_s"] = N_REG_IMAGES / warm_s
     res["stage_s"] = {k: timer.stats[k].total_seconds for k in chain}
     res["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    prof = profile_pass(lambda: run(os.path.join(tmp, "reg_prof")))
+    prof = profile_pass(lambda: run(os.path.join(tmp, f"{name}_prof")))
     res["profile"] = prof
     res["idle_share"] = (1.0 - prof["device_ms"] / (warm_s * 1e3) if prof["device_ms"] > 0
                          else "not measured")
     return res
+
+
+def reference_weights() -> tuple[dict, dict]:
+    """Released-checkpoint-shaped state dicts for the `vitl_reference` depth
+    preset and `MatcherConfig.mast3r_vitl()` at full size, made from seeds,
+    through the port's converters: Flax-layout trees under `params_moge`,
+    `params_depth_pro` and `matcher`, and each one's parameter count."""
+    from labelany3d_tpu_torch.models import convert
+    from labelany3d_tpu_torch.models.depth_pro import DepthPro35Config
+    from labelany3d_tpu_torch.models.matcher import MatcherConfig
+    from labelany3d_tpu_torch.models.moge import MoGeConfig
+
+    out, counts = {}, {}
+    for key, cfg, make, conv in (
+            ("params_moge", MoGeConfig.vitl(), released_moge_state,
+             lambda st, c: convert.convert_moge_checkpoint(st, c, c.backbone.pos_grid)),
+            ("params_depth_pro", DepthPro35Config(), released_depth_pro_state,
+             convert.convert_depth_pro),
+            ("matcher", MatcherConfig.mast3r_vitl(), released_mast3r_state,
+             convert.convert_mast3r)):
+        state = make(cfg)  # one released state dict in memory at a time
+        counts[key] = sum(v.size for v in state.values())
+        out[key] = conv(state, cfg)
+        del state
+    return out, counts
 
 
 def k3_launches(by_shape: dict, pairs: int, s: int, precision: str = "bf16") -> int:
@@ -703,7 +945,15 @@ def kernel_checks() -> dict:
     # shape with Sq != Sk read through strides, and segment ids with NaN pads.
     k2 = {"path": check_flash(32, 1296, 1296, seed=11, timed=True),
           "cross": check_flash(8, 1296, 777, seed=12, strided=True),
-          "segment_ids": check_flash(4, 1296, 1296, seed=13, pad_keys=101)}
+          "segment_ids": check_flash(4, 1296, 1296, seed=13, pad_keys=101),
+          # The reference chain: the MASt3R rope encoder over 4 references +
+          # 32 views (16 heads, 32x32 tokens at 512^2, no pad), a padded rope
+          # encoder's segment ids at 16 heads, and the decoder at 1024
+          # tokens in a stage-A (32 pairs) and a stage-B (4 pairs) forward.
+          "rope_encoder": check_flash(36, 1024, 1024, seed=14, heads=16, timed=True),
+          "rope_segment_ids": check_flash(4, 1024, 1024, seed=15, heads=16, pad_keys=101),
+          "decoder_1024": check_flash(32, 1024, 1024, seed=16, timed=True),
+          "stage_b_1024": check_flash(4, 1024, 1024, seed=17, timed=True)}
     for name, r in k2.items():
         _say(f"K2:{name}", **r, max_abs_tol=K2_MAX_ABS_TOL, rel_tol=K2_REL_TOL)
     bad = [n for n, r in k2.items() if not r["finite"] or r["max_abs_err"] > K2_MAX_ABS_TOL
@@ -799,10 +1049,15 @@ def main() -> int:
     _say("sass", cuobjdump=tool, **{k: json.dumps(v) for k, v in sass.items()})
 
     # 3. K1 against its plain version at its path shapes (MoGe, DepthPro, the
-    # matcher encoder over 4 references + 32 views), and with NaN pads.
+    # matcher encoder over 4 references + 32 views, DepthPro35's encoders),
+    # and with NaN pads.
+    # The reference chain adds DepthPro35's patch encoder (35 patches x 8
+    # images, 24x24 tokens + cls at 384^2) and its image and FoV encoders.
     shapes = {"moge": dict(b=8, n_pad=1408, n_real=1297, heads=16, d=64),
               "depth_pro": dict(b=40, n_pad=384, n_real=325, heads=16, d=64),
-              "matcher": dict(b=36, n_pad=1408, n_real=1297, heads=16, d=64)}
+              "matcher": dict(b=36, n_pad=1408, n_real=1297, heads=16, d=64),
+              "depth_pro35_patch": dict(b=280, n_pad=640, n_real=577, heads=16, d=64),
+              "depth_pro35_image": dict(b=8, n_pad=640, n_real=577, heads=16, d=64)}
     k1 = {}
     for i, (name, shape) in enumerate(shapes.items()):
         k1[name] = check_attention(shape, seed=i)
@@ -900,6 +1155,43 @@ def main() -> int:
         if not reg["ok"]:
             raise SystemExit("registration chain: launches, plain calls, failures or scene "
                              "artifacts are not as required (see registration:cold)")
+        torch.cuda.empty_cache()
+
+        # 8. The registration chain at the checkpoint-faithful models, with
+        # released-checkpoint-shaped weights through the port's converters.
+        from labelany3d_tpu_torch.models.matcher import MatcherConfig
+
+        t0 = time.perf_counter()
+        weights, n_params = reference_weights()
+        _say("reference:weights", s=time.perf_counter() - t0,
+             parameters=json.dumps(n_params))
+        mp = weights.pop("matcher")
+        ref = run_registration({}, tmp, name="ref",
+                               depth_kw={"preset": "vitl_reference", **weights},
+                               matcher_cfg=MatcherConfig.mast3r_vitl(), matcher_params=mp)
+        del weights, mp
+        _say("reference:cold", s=ref["cold_s"], forwards=ref["forwards"],
+             launches=json.dumps(ref["launches"]), want=json.dumps(ref["want"]),
+             plain_calls=json.dumps(ref["plain_calls"]), failures=json.dumps(ref["failures"]),
+             k3_launches_by_shape=k3_shapes_json(ref["k3_by_shape"]),
+             scenes_with_boxes=ref["scenes_with_boxes"], coco3d_images=ref["coco3d_images"],
+             f16_overflow_boxes=ref["f16_overflow_boxes"])
+        p8 = ref["profile"]
+        _say("reference:warm", s=ref["warm_s"], images_per_s=ref["images_per_s"])
+        _say("reference:stage_s", **ref["stage_s"])
+        _say("reference:device_ms", traced_pass=p8["device_ms"],
+             traced_wall_ms=p8["wall_ms"],
+             **{f"{k}_device_ms": p8[f"{k}_ms"] for k in PROFILE_NAMES},
+             **{f"{k}_device_events": p8[f"{k}_events"] for k in PROFILE_NAMES},
+             top_device=json.dumps(p8["top_device"]), top_host=json.dumps(p8["top_host"]))
+        _say("reference:idle_share", of_warm_pass=ref["idle_share"])
+        # DepthPro35's head alone holds 8 x 1536^2 x 128 bf16 after its
+        # transposed convolution.
+        _say("reference:max_memory_gb", measured=ref["max_memory_gb"],
+             head_deconv_estimate=8 * 1536 ** 2 * 128 * 2 / 1e9)
+        if not ref["ok"]:
+            raise SystemExit("reference chain: launches, plain calls, failures or scene "
+                             "artifacts are not as required (see reference:cold)")
 
     def row(name, source, replaces, launches, r, max_abs_err, **extra):
         return {"name": name, "route": "cuda", "source": f"labelany3d_tpu_torch/csrc/{source}",
@@ -919,17 +1211,24 @@ def main() -> int:
         row("packed_attention", "packed_attention.cu", "labelany3d_tpu/ops/attention.py:133",
             launches, k1["moge"], max(r["max_abs_err"] for r in k1.values()),
             launches_registration=reg["launches"]["k1"],
+            launches_reference_chain=ref["launches"]["k1"],
             shape="MoGe B=8 Npad=1408 n_real=1297 H=16 d=64", design=design,
             ratio_to_library=k1["moge"]["ratio_to_library"],
             share_of_bound=k1["moge"]["share_of_bound"], sass=sass["k1"],
-            **{name: {k: k1[name][k] for k in timed} for name in ("depth_pro", "matcher")}),
+            **{name: {k: k1[name][k] for k in timed}
+               for name in ("depth_pro", "matcher", "depth_pro35_patch",
+                            "depth_pro35_image")}),
         row("flash_attention", "flash_attention.cu", "labelany3d_tpu/ops/attention.py:42",
             reg["launches"]["k2"], k2["path"], max(r["max_abs_err"] for r in k2.values()),
+            launches_reference_chain=ref["launches"]["k2"],
             shape="q, k, v (32, 1296, 12, 64) bf16", design=design,
             ratio_to_library=k2["path"]["ratio_to_library"],
-            share_of_bound=k2["path"]["share_of_bound"], sass=sass["k2"]),
+            share_of_bound=k2["path"]["share_of_bound"], sass=sass["k2"],
+            **{name: {k: k2[name][k] for k in timed}
+               for name in ("rope_encoder", "decoder_1024", "stage_b_1024")}),
         row("nn_argmax", "nn_argmax.cu", "labelany3d_tpu/ops/reciprocal_nn.py:29",
             reg["launches"]["k3"], k3["path_bf16"], max(r["max_abs_err"] for r in k3.values()),
+            launches_reference_chain=ref["launches"]["k3"],
             shape="query (32, 4096, 24) x bank (32, 262144, 24), bf16 operands",
             design=NN_DESIGN, sass=sass["k3"], share_of_bound=k3["path_bf16"]["share_of_bound"],
             library="none at 32 x 4096 (a 68 GB score matrix); see compact and one_pair",
@@ -948,6 +1247,7 @@ def main() -> int:
                    ("one_pair_bf16x3", "one_pair_bf16x3", (1, 4096, "bf16x3")))}),
         row("yaw_minarea", "yaw_minarea.cu", "labelany3d_tpu/ops/boxfit_pallas.py:54",
             reg["launches"]["k4"], k4["layout"], max(r["max_abs_err"] for r in k4.values()),
+            launches_reference_chain=ref["launches"]["k4"],
             shape="points (16, 500, 2), 512 angles", design=YAW_DESIGN,
             timing="device time from CUDA-graph replays; eager_ms is the eager call's",
             eager_ms=k4["layout"]["eager_ms"],

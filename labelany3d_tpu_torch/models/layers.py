@@ -51,6 +51,36 @@ class Conv(nn.Conv2d):
                             self.stride, self.padding)
 
 
+class Conv3Replicate(Conv):
+    """3x3 convolution after a one-pixel edge pad (torch
+    `padding_mode='replicate'`; the JAX package's `_conv3_replicate`)."""
+
+    def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype):
+        super().__init__(in_ch, out_ch, 3, dtype, padding=0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(F.pad(x, (1, 1, 1, 1), mode="replicate"))
+
+
+class ConvTranspose(nn.ConvTranspose2d):
+    """Flax `nn.ConvTranspose` with kernel == stride and `padding='SAME'`
+    (`transpose_kernel=False`): out[s*i + a] = x[i] * w_flax[s-1-a] per
+    spatial axis. A torch transposed convolution gives out[s*i + a] =
+    x[i] * w[a], so `models/weights.py` flips the Flax kernel in both spatial
+    axes when it carries one across."""
+
+    def __init__(self, in_ch: int, out_ch: int, stride: int, dtype: torch.dtype,
+                 bias: bool = True):
+        super().__init__(in_ch, out_ch, stride, stride=stride, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.compute_dtype
+        with full_f32() if d == torch.float32 else contextlib.nullcontext():
+            return F.conv_transpose2d(x.to(d), self.weight.to(d), _cast(self.bias, d),
+                                      self.stride)
+
+
 class LayerNorm32(nn.LayerNorm):
     """LayerNorm computed in float32 with Flax's epsilon (1e-6)."""
 
@@ -62,9 +92,29 @@ class LayerNorm32(nn.LayerNorm):
                             self.bias.float(), self.eps)
 
 
-def resize_bilinear(x: torch.Tensor, size: tuple[int, int], antialias: bool = False) -> torch.Tensor:
-    """NCHW bilinear resize with half-pixel centres (`jax.image.resize`'s
-    'bilinear'). Upsampling agrees with JAX exactly; for downsampling JAX
-    antialiases with a widened triangle kernel, which `antialias=True` gives."""
-    return F.interpolate(x, size=size, mode="bilinear", align_corners=False,
-                         antialias=antialias)
+class GroupNorm32(nn.GroupNorm):
+    """NCHW GroupNorm computed in float32 (Flax `nn.GroupNorm` takes its
+    statistics in float32 and returns float32 beside f32 scales)."""
+
+    def __init__(self, groups: int, channels: int, eps: float = 1e-5):
+        super().__init__(groups, channels, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
+                            self.bias.float(), self.eps)
+
+
+def resize(x: torch.Tensor, size: tuple[int, int], method: str = "bilinear",
+           antialias: bool = True) -> torch.Tensor:
+    """NCHW resize with half-pixel centres, as `jax.image.resize` (whose
+    `antialias` defaults to True): downsampling widens the kernel by the
+    scale and renormalises it over the taps inside the image, and 'bicubic'
+    is Keys' kernel with a = -0.5. PyTorch's antialiased modes compute the
+    same weights. Antialiasing changes nothing on an upsampled axis, so a
+    bilinear upsample takes PyTorch's plain path (any dtype); bicubic always
+    takes the antialiased one, since PyTorch's plain bicubic uses a = -0.75."""
+    if method == "bicubic" and not antialias:
+        raise ValueError("bicubic without antialias has no PyTorch counterpart of JAX's")
+    down = size[0] < x.shape[-2] or size[1] < x.shape[-1]
+    return F.interpolate(x, size=tuple(size), mode=method, align_corners=False,
+                         antialias=method == "bicubic" or (antialias and down))

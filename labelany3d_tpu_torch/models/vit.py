@@ -1,12 +1,15 @@
 """DINOv2-style Vision Transformer encoder (PyTorch).
 
-Counterpart of `labelany3d_tpu/models/vit.py` for learned position
-embeddings. Module names follow the Flax tree (`block{i}.attn.qkv`, ...)
-so `models/weights.py` carries parameters across one to one.
+Counterpart of `labelany3d_tpu/models/vit.py`. Module names follow the Flax
+tree (`block{i}.attn.qkv`, ...) so `models/weights.py` carries parameters
+across one to one.
 
-The token sequence is padded once to a multiple of 128 and every layer's
-attention runs through `ops.attention.packed_sdpa` with `n_real`, on every
-device, so the CPU path masks exactly as the CUDA kernel does.
+The token sequence is padded once to a multiple of 128. With learned
+position embeddings every layer's attention runs through
+`ops.attention.packed_sdpa` (K1) with `n_real`; with 2D rotary positions
+(CroCo/MASt3R, `pos_embed='rope2d'`) q and k are rotated and attention runs
+through `ops.attention.flash_sdpa` (K2), pad keys masked by segment ids.
+Both run on every device, so the CPU path masks exactly as the kernels do.
 """
 
 from __future__ import annotations
@@ -18,8 +21,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from labelany3d_tpu_torch.models.layers import Conv, Dense, LayerNorm32
-from labelany3d_tpu_torch.ops.attention import packed_sdpa
+from labelany3d_tpu_torch.models.layers import Conv, Dense, LayerNorm32, resize
+from labelany3d_tpu_torch.ops.attention import flash_sdpa, packed_sdpa
+from labelany3d_tpu_torch.ops.rope2d import apply_rope_2d, rope_2d_freqs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,9 +33,18 @@ class ViTConfig:
     depth: int = 24
     num_heads: int = 16
     mlp_ratio: float = 4.0
-    layerscale_init: float = 1e-5
+    num_register_tokens: int = 0
+    use_class_token: bool = True
+    layerscale_init: float | None = 1e-5
+    pos_embed: str = "learned"      # 'learned' | 'rope2d' (CroCo/MASt3R)
     dtype: torch.dtype = torch.bfloat16
     out_indices: Sequence[int] = ()
+    # Apply the final LayerNorm to each intermediate output (DINOv2
+    # get_intermediate_layers(norm=True); the MoGe checkpoint head needs it).
+    norm_hiddens: bool = False
+    # Grid of the learned pos_embed (e.g. (37, 37) for DINOv2-L/14 at 518);
+    # None = the grid the model is built for. Another live grid resizes it.
+    pos_grid: tuple | None = None
 
     @staticmethod
     def small(**kw) -> "ViTConfig":
@@ -67,12 +80,20 @@ class Attention(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
         self.num_heads = cfg.num_heads
+        self.dtype = cfg.dtype
         self.qkv = Dense(cfg.width, 3 * cfg.width, cfg.dtype)
         self.proj = Dense(cfg.width, cfg.width, cfg.dtype)
 
-    def forward(self, x, n_real: int):
+    def forward(self, x, n_real: int, rope=None, seg=None):
         qkv = self.qkv(x).contiguous()
-        return self.proj(packed_sdpa(qkv, self.num_heads, n_real))
+        if rope is None:
+            return self.proj(packed_sdpa(qkv, self.num_heads, n_real))
+        b, n, w3 = qkv.shape
+        q, k, v = qkv.view(b, n, 3, self.num_heads, w3 // 3 // self.num_heads).unbind(2)
+        # RoPE in float32, then back to the compute dtype (vit.py:166-167).
+        q = apply_rope_2d(q.float(), *rope).to(self.dtype)
+        k = apply_rope_2d(k.float(), *rope).to(self.dtype)
+        return self.proj(flash_sdpa(q, k, v, segment_ids=seg).reshape(b, n, w3 // 3))
 
 
 class LayerScale(nn.Module):
@@ -92,11 +113,14 @@ class Block(nn.Module):
         self.attn = Attention(cfg)
         self.norm2 = LayerNorm32(cfg.width)
         self.mlp = Mlp(cfg)
-        self.ls1 = LayerScale(cfg.width, cfg.layerscale_init)
-        self.ls2 = LayerScale(cfg.width, cfg.layerscale_init)
+        if cfg.layerscale_init is not None:
+            self.ls1 = LayerScale(cfg.width, cfg.layerscale_init)
+            self.ls2 = LayerScale(cfg.width, cfg.layerscale_init)
+        else:
+            self.ls1 = self.ls2 = nn.Identity()
 
-    def forward(self, x, n_real: int):
-        x = x + self.ls1(self.attn(self.norm1(x).to(self.dtype), n_real))
+    def forward(self, x, n_real: int, rope=None, seg=None):
+        x = x + self.ls1(self.attn(self.norm1(x).to(self.dtype), n_real, rope, seg))
         return x + self.ls2(self.mlp(self.norm2(x).to(self.dtype)))
 
 
@@ -105,24 +129,32 @@ def _pad_to(n: int, multiple: int = 128) -> int:
 
 
 class ViT(nn.Module):
-    """Patchify -> class token + transformer; returns final and requested
+    """Patchify -> prefix tokens + transformer; returns final and requested
     block outputs.
 
-    Input: (B, H, W, 3) NHWC images. The pos-embed grid is fixed at
-    construction: `grid` is the token grid of the inputs the model will see.
-    Output dict as in the JAX package: tokens (B, N, C), grid (gh, gw),
-    hiddens [(B, N, C)] (pre-norm outputs of the `out_indices` blocks),
-    cls (B, C).
+    Input: (B, H, W, 3) NHWC images. `grid` is the token grid of the inputs
+    the model is built for; it sizes the learned pos-embed unless
+    `cfg.pos_grid` does, and a live grid that differs resizes the embedding
+    (`resize_pos_embed`). Output dict as in the JAX package: tokens
+    (B, N, C), grid (gh, gw), hiddens [(B, N, C)] (outputs of the
+    `out_indices` blocks, final-normed with `norm_hiddens`), all_prenorm
+    (B, n_prefix + N, C), and cls (B, C) with a class token.
     """
 
     def __init__(self, cfg: ViTConfig, grid: tuple[int, int]):
         super().__init__()
+        if cfg.pos_embed not in ("learned", "rope2d"):
+            raise ValueError(f"Unknown pos_embed mode: {cfg.pos_embed}")
         self.cfg = cfg
         c = cfg.width
         self.patch_embed = Conv(3, c, cfg.patch_size, cfg.dtype, stride=cfg.patch_size,
                                 padding=0)
-        self.pos_embed = nn.Parameter(torch.zeros(1, *grid, c))
-        self.cls_token = nn.Parameter(torch.zeros(1, 1, c))
+        if cfg.pos_embed == "learned":
+            self.pos_embed = nn.Parameter(torch.zeros(1, *(cfg.pos_grid or grid), c))
+        if cfg.use_class_token:
+            self.cls_token = nn.Parameter(torch.zeros(1, 1, c))
+        if cfg.num_register_tokens:
+            self.register_tokens = nn.Parameter(torch.zeros(1, cfg.num_register_tokens, c))
         for i in range(cfg.depth):
             self.add_module(f"block{i}", Block(cfg))
         self.norm = LayerNorm32(c)
@@ -135,11 +167,20 @@ class ViT(nn.Module):
         x = self.patch_embed(images.permute(0, 3, 1, 2).to(cfg.dtype))
         x = x.flatten(2).transpose(1, 2)  # (B, gh*gw, C)
 
-        pos = self.pos_embed
-        if tuple(pos.shape[1:3]) != (gh, gw):
-            pos = resize_pos_embed(pos, gh, gw)
-        x = x + pos.reshape(1, gh * gw, cfg.width).to(cfg.dtype)
-        x = torch.cat([self.cls_token.to(cfg.dtype).expand(b, 1, cfg.width), x], dim=1)
+        if cfg.pos_embed == "learned":
+            pos = self.pos_embed
+            if tuple(pos.shape[1:3]) != (gh, gw):
+                pos = resize_pos_embed(pos, gh, gw)
+            x = x + pos.reshape(1, gh * gw, cfg.width).to(cfg.dtype)
+        prefix = []
+        if cfg.use_class_token:
+            prefix.append(self.cls_token.to(cfg.dtype).expand(b, 1, cfg.width))
+        if cfg.num_register_tokens:
+            prefix.append(self.register_tokens.to(cfg.dtype).expand(
+                b, cfg.num_register_tokens, cfg.width))
+        n_prefix = sum(t.shape[1] for t in prefix)
+        if prefix:
+            x = torch.cat([*prefix, x], dim=1)
 
         # Pad once to a lane multiple; pad rows are masked as keys and
         # sliced off at every output.
@@ -147,21 +188,37 @@ class ViT(nn.Module):
         n_full = _pad_to(n_real)
         if n_full != n_real:
             x = F.pad(x, (0, 0, 0, n_full - n_real))
+        rope = seg = None
+        if cfg.pos_embed == "rope2d":
+            # Prefix and pad tokens sit at (0, 0), the identity rotation.
+            ys, xs = torch.meshgrid(torch.arange(gh, device=x.device),
+                                    torch.arange(gw, device=x.device), indexing="ij")
+            pos = torch.zeros(1, n_full, 2, dtype=torch.long, device=x.device)
+            pos[0, n_prefix:n_real] = torch.stack([ys, xs], dim=-1).reshape(-1, 2)
+            rope = rope_2d_freqs(cfg.width // cfg.num_heads, pos)
+            if n_full != n_real:
+                seg = (torch.arange(n_full, device=x.device) >= n_real).to(
+                    torch.int32).expand(b, n_full)
 
         want = {i % cfg.depth for i in cfg.out_indices}
         hiddens = []
         for i in range(cfg.depth):
-            x = getattr(self, f"block{i}")(x, n_real)
+            x = getattr(self, f"block{i}")(x, n_real, rope, seg)
             if i in want:
-                hiddens.append(x[:, 1:n_real])
+                hid = self.norm(x[:, :n_real]) if cfg.norm_hiddens else x[:, :n_real]
+                hiddens.append(hid[:, n_prefix:])
 
-        x = self.norm(x[:, :n_real]).to(cfg.dtype)
-        return {"tokens": x[:, 1:], "grid": (gh, gw), "hiddens": hiddens, "cls": x[:, 0]}
+        x_prenorm = x[:, :n_real]
+        x = self.norm(x_prenorm).to(cfg.dtype)
+        out = {"tokens": x[:, n_prefix:], "grid": (gh, gw), "hiddens": hiddens,
+               "all_prenorm": x_prenorm.to(cfg.dtype)}
+        if cfg.use_class_token:
+            out["cls"] = x[:, 0]
+        return out
 
 
 def resize_pos_embed(pos: torch.Tensor, new_gh: int, new_gw: int) -> torch.Tensor:
-    """Antialiased bicubic pos-embed interpolation between buckets. Not
-    ported yet: the port runs at one pinned bucket."""
-    raise NotImplementedError(
-        f"resize_pos_embed ({tuple(pos.shape[1:3])} -> ({new_gh}, {new_gw})) is not "
-        "ported yet; pin the bucket (pin_hw) so the pos-embed grid matches")
+    """(1, gh, gw, C) -> (1, new_gh, new_gw, C): antialiased bicubic
+    interpolation between resolution buckets, as the JAX package's
+    `jax.image.resize(..., 'bicubic', antialias=True)` (Keys a = -0.5)."""
+    return resize(pos.permute(0, 3, 1, 2), (new_gh, new_gw), "bicubic").permute(0, 2, 3, 1)

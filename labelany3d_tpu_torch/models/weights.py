@@ -8,13 +8,19 @@ package's own parameters across with `flax_to_state_dict` instead.
 
 The port's modules carry the Flax module names (`block{i}.attn.qkv` in the
 ViT; `dec0_block{i}.self_q`, `dec1_block{i}.mlp.fc1`, `head0.proj` in the
-matcher), so one set of rules serves every model.
+matcher; `up{i}_deconv`, `out{j}_conv_in` in the MoGe checkpoint head), so
+one set of rules serves every model. A released torch checkpoint reaches a
+port model through the JAX package's name mapping, copied in
+`models/convert.py`: `flax_to_state_dict(convert_X(state, cfg), model)`.
 
 Mapping rules (Flax leaf -> PyTorch parameter), module paths joined by '.':
   Dense `kernel` (in, out)     -> `weight` (out, in)
   Conv  `kernel` (kh, kw, I, O) -> `weight` (O, I, kh, kw)
-  LayerNorm `scale`            -> `weight`
-  any other leaf (`bias`, `gamma`, `pos_embed`, `cls_token`, ...) keeps its name.
+  ConvTranspose `kernel` (kh, kw, I, O) -> `weight` (I, O, kh, kw), flipped in
+                                  both spatial axes (`layers.ConvTranspose`)
+  LayerNorm / GroupNorm `scale` -> `weight`
+  any other leaf (`bias`, `gamma`, `pos_embed`, `cls_token`,
+  `register_tokens`, ...) keeps its name.
 Any key missing from either side, or any shape mismatch, raises.
 """
 
@@ -26,14 +32,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from labelany3d_tpu_torch.models.layers import LayerNorm32
+from labelany3d_tpu_torch.models.layers import GroupNorm32, LayerNorm32
 
 _TRUNC = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
 
 
-def _lecun_normal_(t: torch.Tensor, gen: torch.Generator) -> None:
+def _lecun_normal_(t: torch.Tensor, gen: torch.Generator, fan_in: int) -> None:
     """Flax `lecun_normal`: truncated normal on [-2, 2], variance 1/fan_in."""
-    fan_in = t[0].numel()
     std = math.sqrt(1.0 / fan_in) / _TRUNC
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
     u = torch.empty(t.shape, device=t.device).uniform_(lo, 1.0 - lo, generator=gen)
@@ -44,18 +49,23 @@ def _lecun_normal_(t: torch.Tensor, gen: torch.Generator) -> None:
 def init_params_(model: nn.Module, gen: torch.Generator) -> nn.Module:
     """Random-initialise every parameter of `model` in place."""
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv2d)):
-            _lecun_normal_(mod.weight, gen)
+        if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+            w = mod.weight
+            # Flax's fan-in is the input channels times the window; a
+            # transposed convolution keeps its input channels in dim 0.
+            fan_in = (w.shape[0] * w[0, 0].numel() if isinstance(mod, nn.ConvTranspose2d)
+                      else w[0].numel())
+            _lecun_normal_(w, gen, fan_in)
             if mod.bias is not None:
                 mod.bias.zero_()
-        elif isinstance(mod, nn.LayerNorm):
+        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "pos_embed":
             p.normal_(0.0, 0.02, generator=gen)
-        elif leaf == "cls_token":
+        elif leaf in ("cls_token", "register_tokens"):
             p.zero_()
     return model
 
@@ -63,15 +73,16 @@ def init_params_(model: nn.Module, gen: torch.Generator) -> nn.Module:
 @torch.no_grad()
 def cast_inference_params_(model: nn.Module, dtype: torch.dtype = torch.bfloat16) -> nn.Module:
     """Cast the parameters the JAX backend casts (Flax leaves named `kernel`
-    or `bias`: Dense/Conv weights and biases, LayerNorm biases) to `dtype`
-    once; LayerNorm scales, LayerScale gammas and embeddings stay f32.
-    Layers cast to their compute dtype per call, so this only saves work."""
+    or `bias`: Dense, Conv and ConvTranspose weights and biases, LayerNorm
+    and GroupNorm biases) to `dtype` once; norm scales, LayerScale gammas
+    and embeddings stay f32. Layers cast to their compute dtype per call, so
+    the weights' cast only saves work."""
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv2d)):
+        if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             mod.weight.data = mod.weight.data.to(dtype)
             if mod.bias is not None:
                 mod.bias.data = mod.bias.data.to(dtype)
-        elif isinstance(mod, LayerNorm32):
+        elif isinstance(mod, (LayerNorm32, GroupNorm32)):
             mod.bias.data = mod.bias.data.to(dtype)
     return model
 
@@ -88,12 +99,19 @@ def flax_to_state_dict(params, model: nn.Module) -> dict[str, torch.Tensor]:
     """Convert a Flax parameter tree (nested dict of arrays) into `model`'s
     state_dict; raises on any missing or unused key or shape mismatch."""
     target = model.state_dict()
+    transposed = {name for name, m in model.named_modules()
+                  if isinstance(m, nn.ConvTranspose2d)}
     out: dict[str, torch.Tensor] = {}
     for path, arr in _flatten(params):
         *mods, leaf = path
         t = torch.from_numpy(np.array(np.asarray(arr, np.float32)))
         if leaf == "kernel":
-            t = t.t() if t.ndim == 2 else t.permute(3, 2, 0, 1)
+            if t.ndim == 2:
+                t = t.t()
+            elif ".".join(mods) in transposed:
+                t = t.flip(0, 1).permute(2, 3, 0, 1)
+            else:
+                t = t.permute(3, 2, 0, 1)
             leaf = "weight"
         elif leaf == "scale":
             leaf = "weight"

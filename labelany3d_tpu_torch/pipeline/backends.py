@@ -15,7 +15,15 @@ from typing import Protocol
 import numpy as np
 import torch
 
-from labelany3d_tpu_torch.models.depth_pro import DepthProConfig, DepthProModel, depth_pro_infer
+from labelany3d_tpu_torch.models.depth_pro import (
+    DepthPro35,
+    DepthPro35Config,
+    DepthProConfig,
+    DepthProModel,
+    depth_pro35_infer,
+    depth_pro_infer,
+)
+from labelany3d_tpu_torch.models.layers import resize
 from labelany3d_tpu_torch.models.moge import (
     MoGeConfig,
     MoGeModel,
@@ -24,7 +32,11 @@ from labelany3d_tpu_torch.models.moge import (
 )
 from labelany3d_tpu_torch.models.registry import ModelRegistry
 from labelany3d_tpu_torch.models.vit import ViTConfig
-from labelany3d_tpu_torch.models.weights import cast_inference_params_, init_params_
+from labelany3d_tpu_torch.models.weights import (
+    cast_inference_params_,
+    flax_to_state_dict,
+    init_params_,
+)
 from labelany3d_tpu_torch.utils.device import resolve_device
 
 
@@ -41,16 +53,24 @@ class TorchDepthBackend:
     """MoGe -> DepthPro at one pinned resolution bucket.
 
     Models are built on first use at that bucket (`pin_hw`, else the first
-    batch's size) with random weights from a `torch.Generator` seeded with
-    `seed` (MoGe) and `seed + 1` (DepthPro), whose Dense/Conv weights are
-    then cast to bf16 once, as the JAX backend does for its random init.
-    Converted checkpoints wait for the ported checkpoint models.
+    batch's size). `params_moge` / `params_depth_pro` are Flax-layout trees
+    (the JAX package's parameters, or a released checkpoint through
+    `models/convert.py`), loaded as they are. A model without them gets
+    random weights from a `torch.Generator` seeded with `seed` (MoGe) or
+    `seed + 1` (DepthPro), whose Dense/Conv weights are then cast to bf16
+    once, as the JAX backend does for its random init.
+
+    A `DepthPro35Config` selects the checkpoint-faithful 35-patch DepthPro,
+    which runs at its fixed `img_size` (1536): the batch is resized to it,
+    the focal scaled with the width, and the depth resized back.
     """
 
     def __init__(
         self,
         moge_cfg: MoGeConfig | None = None,
-        depth_pro_cfg: DepthProConfig | None = None,
+        depth_pro_cfg: DepthProConfig | DepthPro35Config | None = None,
+        params_moge=None,
+        params_depth_pro=None,
         seed: int = 0,
         pin_hw: tuple | None = None,
         device: str | torch.device | None = None,
@@ -58,30 +78,38 @@ class TorchDepthBackend:
         self.device = resolve_device(device)
         self.moge_cfg = moge_cfg or MoGeConfig()
         self.dp_cfg = depth_pro_cfg or DepthProConfig()
+        self._dp35 = isinstance(self.dp_cfg, DepthPro35Config)
+        self._params = (params_moge, params_depth_pro)
         self._seed = seed
         self._hw = tuple(pin_hw) if pin_hw is not None else None
         self.moge: MoGeModel | None = None
-        self.depth_pro: DepthProModel | None = None
+        self.depth_pro: DepthProModel | DepthPro35 | None = None
 
-    def _build(self, model: torch.nn.Module, seed: int) -> torch.nn.Module:
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        cast_inference_params_(init_params_(model, gen))
+    def _build(self, model: torch.nn.Module, params, seed: int) -> torch.nn.Module:
+        if params is not None:
+            model.load_state_dict(flax_to_state_dict(params, model))
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            cast_inference_params_(init_params_(model, gen))
         return model.eval().requires_grad_(False)
 
     def _ensure_models(self, h: int, w: int) -> None:
         if self.moge is not None:
             return
-        from labelany3d_tpu_torch.utils.logging import warn_once
+        if all(p is None for p in self._params):
+            from labelany3d_tpu_torch.utils.logging import warn_once
 
-        warn_once("depth_random",
-                  "depth backend runs with random-initialized weights (no "
-                  "converted MoGe/DepthPro checkpoint): depth maps and "
-                  "intrinsics are not meaningful")
+            warn_once("depth_random",
+                      "depth backend runs with random-initialized weights (no "
+                      "converted MoGe/DepthPro checkpoint): depth maps and "
+                      "intrinsics are not meaningful")
         hw = self._hw or (h, w)
         self._hw = hw
         with torch.device(self.device):
-            self.moge = self._build(MoGeModel(self.moge_cfg, hw), self._seed)
-            self.depth_pro = self._build(DepthProModel(self.dp_cfg, hw), self._seed + 1)
+            self.moge = self._build(MoGeModel(self.moge_cfg, hw), self._params[0], self._seed)
+            dp = DepthPro35(self.dp_cfg) if self._dp35 else DepthProModel(self.dp_cfg, hw)
+            self.depth_pro = self._build(dp, self._params[1], self._seed + 1)
+        self._params = (None, None)  # the models hold them now
 
     @torch.inference_mode()
     def infer(self, images) -> dict:
@@ -92,7 +120,14 @@ class TorchDepthBackend:
         x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
         m = moge_infer(self.moge, x, apply_mask=True)
         K_pix = pixel_intrinsics_from_normalized(m["intrinsics"], w, h)
-        d = depth_pro_infer(self.depth_pro, x, f_px=K_pix[:, 0, 0])
+        if self._dp35:
+            s = self.dp_cfg.img_size
+            x_dp = resize(x.permute(0, 3, 1, 2), (s, s)).permute(0, 2, 3, 1)
+            # The focal scales with the resize of the width axis.
+            d = depth_pro35_infer(self.depth_pro, x_dp, f_px=K_pix[:, 0, 0] * (s / w))
+            d = {"depth": resize(d["depth"][:, None], (h, w))[:, 0]}
+        else:
+            d = depth_pro_infer(self.depth_pro, x, f_px=K_pix[:, 0, 0])
         return {
             "relative_depth": m["depth"],
             "metric_depth": d["depth"],
@@ -130,44 +165,51 @@ class TorchMatcherBackend:
     """Registration matcher: TwoViewMatcher + reciprocal NN, the
     `registration.process.MatcherBackend` protocol.
 
-    The model is built on first use at the views' size with random weights
-    from a `torch.Generator` seeded with `seed`, as the JAX backend does
-    without converted weights (registration poses are then meaningless).
-    `tiny` selects `MatcherConfig.tiny_test()` (the default, as in the JAX
-    package); `tiny=False` is the full-width `MatcherConfig()`. Every call
-    is one matcher forward (counted in `forwards`) followed by one batched
-    reciprocal-NN pass over all of its pairs.
+    The model is built on first use at the views' size. `params` is a
+    Flax-layout tree (the JAX package's, or a released MASt3R checkpoint
+    through `models/convert.py::convert_mast3r` for
+    `MatcherConfig.mast3r_vitl()`), loaded as it is; without it the weights
+    are random from a `torch.Generator` seeded with `seed`, as the JAX
+    backend does without converted weights (registration poses are then
+    meaningless). `tiny` selects `MatcherConfig.tiny_test()` (the default,
+    as in the JAX package); `tiny=False` is the full-width `MatcherConfig()`.
+    Every call is one matcher forward (counted in `forwards`) followed by
+    one batched reciprocal-NN pass over all of its pairs.
     """
 
-    def __init__(self, cfg=None, seed: int = 0, tiny: bool = True,
+    def __init__(self, cfg=None, params=None, seed: int = 0, tiny: bool = True,
                  device: str | torch.device | None = None):
         from labelany3d_tpu_torch.models.matcher import MatcherConfig
 
         self.device = resolve_device(device)
         self.cfg = cfg or (MatcherConfig.tiny_test() if tiny else MatcherConfig())
+        self.params = params
         self._seed = seed
         self.model = None
         self.forwards = 0
 
     def _ensure(self, h: int, w: int) -> None:
-        p = self.cfg.encoder.patch_size
+        """Build the model at the first views' token grid; views of another
+        size later resize a learned pos-embed (a rope encoder has none)."""
         if self.model is not None:
-            if self.model.encoder.pos_embed.shape[1:3] != (h // p, w // p):
-                raise NotImplementedError(
-                    f"the matcher was built for a {tuple(self.model.encoder.pos_embed.shape[1:3])}"
-                    f" token grid; views of {h}x{w} need resize_pos_embed, not ported yet")
             return
         from labelany3d_tpu_torch.models.matcher import TwoViewMatcher
-        from labelany3d_tpu_torch.utils.logging import warn_once
 
-        warn_once("matcher_random",
-                  "matcher backend runs with random-initialized descriptors (no "
-                  "converted MASt3R checkpoint): registration poses and scales "
-                  "are not meaningful")
-        gen = torch.Generator(device=self.device).manual_seed(self._seed)
+        p = self.cfg.encoder.patch_size
         with torch.device(self.device):
             model = TwoViewMatcher(self.cfg, (h // p, w // p))
-        self.model = init_params_(model, gen).eval().requires_grad_(False)
+        if self.params is not None:
+            model.load_state_dict(flax_to_state_dict(self.params, model))
+            self.params = None  # the model holds them now
+        else:
+            from labelany3d_tpu_torch.utils.logging import warn_once
+
+            warn_once("matcher_random",
+                      "matcher backend runs with random-initialized descriptors (no "
+                      "converted MASt3R checkpoint): registration poses and scales "
+                      "are not meaningful")
+            init_params_(model, torch.Generator(device=self.device).manual_seed(self._seed))
+        self.model = model.eval().requires_grad_(False)
 
     @staticmethod
     def _prep_ref(ref_rgba: np.ndarray, h: int, w: int) -> np.ndarray:
@@ -239,14 +281,17 @@ def make_depth(preset: str = "large", **kw) -> TorchDepthBackend:
     """Depth backend presets, as `register_default_backends().make_depth`."""
     if preset == "tiny_test":
         return TorchDepthBackend(MoGeConfig.tiny_test(), DepthProConfig.tiny_test(), **kw)
-    if preset in ("vitl_reference", "tiny_reference"):
-        raise NotImplementedError(
-            f"preset {preset!r} needs DepthPro35 and the MoGe checkpoint head, "
-            "which are not ported yet")
+    if preset == "vitl_reference":
+        # The released graphs: load converted weights through
+        # models/convert.py and pass them as params_moge / params_depth_pro.
+        return TorchDepthBackend(MoGeConfig.vitl(), DepthPro35Config(), **kw)
+    if preset == "tiny_reference":
+        return TorchDepthBackend(MoGeConfig.tiny_reference_test(), DepthPro35Config.tiny_test(),
+                                 **kw)
     presets = {"small": ViTConfig.small, "base": ViTConfig.base, "large": ViTConfig.large}
     if preset not in presets:
         raise ValueError(f"Unknown models.moge.preset: {preset!r} (choose small | base | "
-                         "large | tiny_test)")
+                         "large | tiny_test | vitl_reference | tiny_reference)")
     backbone = presets[preset]
     out_indices = (5, 11, 17, 23) if preset == "large" else (2, 5, 8, 11)
     return TorchDepthBackend(MoGeConfig(backbone=backbone(out_indices=out_indices)),

@@ -18,7 +18,7 @@ import torch
 from labelany3d_tpu.models import depth_pro as jdp
 from labelany3d_tpu.models.vit import ViTConfig as JViTConfig
 from labelany3d_tpu_torch.models import depth_pro
-from labelany3d_tpu_torch.models.layers import resize_bilinear
+from labelany3d_tpu_torch.models.layers import resize
 from labelany3d_tpu_torch.models.vit import ViTConfig
 from labelany3d_tpu_torch.models.weights import flax_to_state_dict
 
@@ -33,7 +33,7 @@ def test_resize_matches_jax_image_resize(src, dst, aa):
     x = np.random.default_rng(0).standard_normal((2, *src, 3)).astype(np.float32)
     want = np.asarray(jax.image.resize(jnp.asarray(x), (2, *dst, 3), method="bilinear",
                                        antialias=True))
-    got = resize_bilinear(torch.from_numpy(x).permute(0, 3, 1, 2), dst, antialias=aa)
+    got = resize(torch.from_numpy(x).permute(0, 3, 1, 2), dst, antialias=aa)
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, atol=1e-5)
 
 

@@ -24,6 +24,9 @@ def test_import_leaves_jax_out():
         "import labelany3d_tpu_torch.pipeline.runner\n"
         "import labelany3d_tpu_torch.pipeline.stages\n"
         "import labelany3d_tpu_torch.pipeline.backends\n"
+        "import labelany3d_tpu_torch.models.convert\n"
+        "import labelany3d_tpu_torch.models.depth_pro\n"
+        "import labelany3d_tpu_torch.models.matcher\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
     )
@@ -43,6 +46,9 @@ def _imports(path: pathlib.Path):
 def test_source_scan_finds_no_forbidden_import():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 20
+    # The checkpoint models and converters are scanned too.
+    assert {"convert.py", "depth_pro.py", "matcher.py", "moge.py", "vit.py"} <= \
+        {f.name for f in files if f.parent.name == "models"}
     bad = [(f.name, m) for f in files for m in _imports(f) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 
@@ -68,5 +74,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert TorchMatcherBackend(device="cpu").cfg.dec_depth == 2  # tiny, as in JAX
     assert TorchMatcherBackend(tiny=False, device="cpu").cfg.dec_depth == 12
     assert resolve_device("cpu").type == "cpu"
-    with pytest.raises(NotImplementedError):
-        make_depth("vitl_reference", device="cpu")
+    # The checkpoint presets build (their models on first use), on the CPU
+    # only when asked.
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_depth("vitl_reference")
+    ref = make_depth("vitl_reference", device="cpu")
+    assert ref.moge is None and ref.moge_cfg.head_style == "reference" and ref._dp35

@@ -29,6 +29,8 @@ REL_TOL = 5e-3
     (1, 256, 129),     # one key past it
     (3, 64, 61),       # Npad = 64: two of a block's three warpgroups have no rows
     (36, 1408, 1297),  # the matcher encoder's batch
+    (280, 640, 577),   # DepthPro35's patch encoder: 35 patches x 8 images
+    (8, 640, 577),     # DepthPro35's image and FoV encoders
 ])
 def test_packed_attention_kernel_matches_plain(b, n_pad, n_real):
     if not torch.cuda.is_available():
@@ -66,11 +68,24 @@ def _cuda_or_skip():
 def test_flash_attention_kernel_matches_plain(b, sq, sk, masked, strided):
     """`masked` = (lo, hi): keys lo..hi-1 carry a non-zero segment id, and
     those rows of q, k and v hold NaN; only the other rows are compared."""
+    _flash_check(b, sq, sk, masked, strided, heads=12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,masked", [
+    (36, 1024, None),           # the MASt3R rope encoder: 4 references + 32 views
+    (4, 1024, (923, 1024)),     # a padded rope encoder's segment ids
+])
+def test_flash_attention_kernel_16_heads(b, s, masked):
+    _flash_check(b, s, s, masked, False, heads=16)
+
+
+def _flash_check(b, sq, sk, masked, strided, heads):
     _cuda_or_skip()
     g = torch.Generator(device="cuda").manual_seed(1)
 
     def rand(s):
-        return torch.randn(b, s, 12, 64, device="cuda", generator=g).bfloat16()
+        return torch.randn(b, s, heads, 64, device="cuda", generator=g).bfloat16()
 
     q, k, v = rand(sq), rand(sk), rand(sk)
     if strided:

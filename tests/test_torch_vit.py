@@ -83,6 +83,18 @@ def test_random_init_is_seeded_and_scaled():
 
 
 def test_resize_pos_embed_not_ported():
-    _, tcfg = _pair()
-    with pytest.raises(NotImplementedError, match="resize_pos_embed"):
-        ViT(tcfg, (2, 2))(torch.zeros(1, 24, 24, 3))
+    """A live grid other than the pos-embed's resizes the embedding (once
+    not ported, now `resize_pos_embed`): a model built for a 2 x 2 grid
+    runs a 3 x 3 one as the JAX model with `pos_grid=(2, 2)` does."""
+    jcfg, tcfg = _pair()
+    jcfg = dataclasses.replace(jcfg, pos_grid=(2, 2))
+    images = np.random.default_rng(1).uniform(size=(1, 24, 24, 3)).astype(np.float32)
+    jm = JViT(jcfg)
+    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(images))["params"]
+    want = jm.apply({"params": params}, jnp.asarray(images))
+    model = ViT(tcfg, (2, 2))
+    model.load_state_dict(flax_to_state_dict(params, model))
+    with torch.no_grad():
+        got = model(torch.from_numpy(images))
+    assert got["grid"] == (3, 3)
+    np.testing.assert_allclose(got["tokens"].numpy(), np.asarray(want["tokens"]), atol=TOL)

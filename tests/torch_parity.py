@@ -101,3 +101,26 @@ class PairsMatcher:
 
     def match_pairs(self, refs, views, ref_index):
         return [self.oracles[r].match(refs[r], views[p]) for p, r in enumerate(ref_index)]
+
+
+def random_flax_params(init, *args, seed: int = 0) -> dict:
+    """A Flax parameter tree of the shapes `init(key, *args)` gives, filled
+    from a numpy generator instead of running the (slow, unjitted) init:
+    kernels N(0, 1/fan_in), norm scales 1 + N(0, 0.1^2), LayerScale gammas
+    0.5 + N(0, 0.1^2), every other leaf N(0, 0.1^2). Numpy arrays; both
+    packages take them as they are."""
+    shapes = jax.eval_shape(init, jax.random.PRNGKey(0), *args)["params"]
+    rng = np.random.default_rng(seed)
+
+    def fill(path, s):
+        leaf = getattr(path[-1], "key", "")
+        z = rng.standard_normal(s.shape).astype(np.float32)
+        if leaf == "kernel":
+            return z / np.float32(np.sqrt(np.prod(s.shape[:-1])))
+        if leaf == "scale":
+            return 1.0 + 0.1 * z
+        if leaf == "gamma":
+            return 0.5 + 0.1 * z
+        return 0.1 * z
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
