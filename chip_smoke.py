@@ -23,7 +23,13 @@ weights from a seed:
     `MatcherConfig.mast3r_vitl()` (CroCo ViT-L/16 rope encoder, whose
     attention runs K2, and the CatMLP+DPT head), with weights made as
     released torch state dicts from a seed and loaded through the port's
-    converters (`models/convert.py`) and `flax_to_state_dict`.
+    converters (`models/convert.py`) and `flax_to_state_dict`;
+  * the `boxes` route: depth with the scene PLYs -> boxes (K4 box fit) ->
+    export over the `fast` route's 16 images at the `large` preset;
+  * the `all` route (depth -> enhance -> crops -> completion -> elevation ->
+    reconstruction -> layout -> export) over the registration chain's 8
+    images, at the shipping defaults: 4x bicubic enhance, crops cut from the
+    2048x2048 enhanced images, passthrough completion, 0-degree elevation.
 
 Each phase prints one line; any failure exits non-zero. Without CUDA, or
 without the rest of the repository beside it, it exits non-zero and prints
@@ -37,6 +43,7 @@ from __future__ import annotations
 
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -75,6 +82,12 @@ N_IMAGES = 16
 N_REG_IMAGES = 8           # registration chain: one depth batch of 8
 REG_INSTANCES = 4
 STAGE_A_PAIRS = REG_INSTANCES * 8  # a stage-A matcher forward: 4 objects x 8 orbit views
+CHAIN = ("depth", "crops", "reconstruction", "layout", "export")
+ALL_STAGES = ("depth", "enhance", "crops", "completion", "elevation", "reconstruction",
+              "layout", "export")
+ENHANCE_FACTOR = 4
+CROP_SIZE = 512            # CropStage's default, as the runners cut crops
+MESH_FACE_TOL = 1e-3       # the card's scene-mesh face count against the CPU's, relative
 
 
 _T0 = time.perf_counter()
@@ -753,15 +766,19 @@ def sass_opcodes(library: Path, tool: str) -> dict:
     return {op: sass.count(op) for op in (*SASS_REQUIRED, "UTMASTG")}
 
 
-def profile_pass(run) -> dict:
+def profile_pass(run, host: bool = True) -> dict:
     """One pass under torch.profiler: the summed time of the device's own
     events (kernels, copies), each port kernel's share, the events that take
     most of it, and the host ops with the most self CPU time. Host ops that
     launch kernels also carry device time in `key_averages`; only device
-    events are summed, so nothing is counted twice."""
+    events are summed, so nothing is counted twice. With `host` False only
+    the device is traced (no host ops listed), which costs a fraction of
+    the time of recording every host op."""
     import torch
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if host:
+        acts.append(torch.profiler.ProfilerActivity.CPU)
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
         run()
@@ -801,19 +818,77 @@ def check_registration_outputs(save_dir: str, loader) -> tuple:
     return check_scene_outputs(save_dir, loader, f16_overflow_ok=True)
 
 
-def run_registration(cfg_kw: dict, tmp: str, seed: int = 3, name: str = "reg",
-                     depth_kw: dict | None = None, matcher_cfg=None,
-                     matcher_params=None) -> dict:
-    """The registration chain on the card: cold pass (models built, first
-    launches; launch counts read here), warm pass (timed), traced pass.
-    `depth_kw` goes to the registry's depth factory (default: the `large`
-    preset); `matcher_cfg` and `matcher_params` to `TorchMatcherBackend`
-    (default: the full-width `MatcherConfig()`, random weights). Output
-    directories are `<tmp>/<name>_{cold,warm,prof}`."""
-    import torch
-
+def kernel_counters() -> tuple[dict, dict]:
+    """Each kernel wrapper's launch counter and plain-version call counter."""
     from labelany3d_tpu_torch.ops import attention as att
     from labelany3d_tpu_torch.ops import boxfit_yaw as by
+    from labelany3d_tpu_torch.ops import reciprocal_nn as rnn
+
+    return ({"k1": att.KERNEL_LAUNCHES, "k2": att.FLASH_LAUNCHES, "k3": rnn.KERNEL_LAUNCHES,
+             "k4": by.KERNEL_LAUNCHES},
+            {"k1": att.PLAIN_CALLS, "k2": att.FLASH_PLAIN_CALLS, "k3": rnn.PLAIN_CALLS,
+             "k4": by.PLAIN_CALLS})
+
+
+def png_size(path) -> tuple[int, int]:
+    """(height, width) from a PNG's IHDR chunk, without decoding it."""
+    with open(path, "rb") as f:
+        w, h = struct.unpack(">II", f.read(24)[16:24])
+    return h, w
+
+
+def check_all_route_outputs(save_dir: str, loader) -> dict:
+    """The `all` route's stages 2 to 5 on every scene: the enhanced image's
+    size, and each crop's square, whose params must be in original-image
+    pixels: centred on its instance's box and as wide as the crop stage
+    makes it (max(w, h) / 0.7) within a pixel, centre inside the image.
+    Cut from the 4x image with its params left at 4x, a crop's square would
+    be 4x too wide."""
+    import numpy as np
+
+    from labelany3d_tpu_torch.data.sources import CoconutInstanceProvider
+    from labelany3d_tpu_torch.pipeline.scene import SceneDir, scene_dir_name
+
+    prov = CoconutInstanceProvider(loader)
+    sizes, crops, bad, missing = set(), 0, [], 0
+    for info in loader.images:
+        sd = SceneDir(os.path.join(save_dir, "val", scene_dir_name(info["file_name"])))
+        sizes.add(png_size(sd.enhanced_image))
+        boxes = prov.instances(info).bboxes
+        for obj_id in sd.list_crop_ids():
+            crops += 1
+            missing += not (sd.crop_completed(obj_id).exists()
+                            and sd.elevation(obj_id).exists())
+            x, y, w, h = boxes[int(obj_id.split("_")[0])]
+            ox, oy, sc = np.load(sd.crop_params(obj_id))
+            side = CROP_SIZE / sc
+            cx, cy = ox + side / 2, oy + side / 2
+            if (abs(cx - (x + w / 2)) > 1.0 or abs(cy - (y + h / 2)) > 1.0
+                    or abs(side - max(w, h) / 0.7) > 1.0
+                    or not (0 <= cx < info["width"] and 0 <= cy < info["height"])):
+                bad.append(f"{info['id']}:{obj_id}")
+    want = (ENHANCE_FACTOR * IMAGE_HW[0], ENHANCE_FACTOR * IMAGE_HW[1])
+    return {"enhanced_hw": sorted(sizes), "crops": crops, "crops_bad": bad,
+            "crops_without_stage_4_5": missing,
+            "ok": sizes == {want} and crops > 0 and not bad and not missing}
+
+
+def run_registration(cfg_kw: dict, tmp: str, seed: int = 3, name: str = "reg",
+                     depth_kw: dict | None = None, matcher_cfg=None,
+                     matcher_params=None, route: str = "chain",
+                     trace_host: bool = True) -> dict:
+    """The registration chain on the card: cold pass (models built, first
+    launches; launch counts read here), warm pass (timed), traced pass.
+    `route` is "chain" (depth -> crops -> reconstruction -> layout ->
+    export, one `run_stages` call a stage) or "all" (the runner's `all`
+    route, which adds enhance, completion and elevation at their shipping
+    defaults). `depth_kw` goes to the registry's depth factory (default:
+    the `large` preset); `matcher_cfg` and `matcher_params` to
+    `TorchMatcherBackend` (default: the full-width `MatcherConfig()`,
+    random weights). `trace_host` False traces only the device in the
+    traced pass. Output directories are `<tmp>/<name>_{cold,warm,prof}`."""
+    import torch
+
     from labelany3d_tpu_torch.ops import reciprocal_nn as rnn
     from labelany3d_tpu_torch.pipeline.backends import TorchMatcherBackend, default_registry
     from labelany3d_tpu_torch.pipeline.config import PipelineConfig
@@ -830,14 +905,11 @@ def run_registration(cfg_kw: dict, tmp: str, seed: int = 3, name: str = "reg",
                                      seed=cfg.seed)
     matcher = TorchMatcherBackend(cfg=matcher_cfg, params=matcher_params, tiny=False,
                                   seed=cfg.seed, device="cuda")
-    chain = ("depth", "crops", "reconstruction", "layout", "export")
-    counters = {"k1": att.KERNEL_LAUNCHES, "k2": att.FLASH_LAUNCHES,
-                "k3": rnn.KERNEL_LAUNCHES, "k4": by.KERNEL_LAUNCHES}
-    plains = {"k1": att.PLAIN_CALLS, "k2": att.FLASH_PLAIN_CALLS, "k3": rnn.PLAIN_CALLS,
-              "k4": by.PLAIN_CALLS}
+    calls, stage_names = (["all"], ALL_STAGES) if route == "all" else (CHAIN, CHAIN)
+    counters, plains = kernel_counters()
 
     def run(out_dir, timer=None, stages=None):
-        for stage in chain:
+        for stage in calls:
             run_stages(stage, cfg, loader, source, out_dir, "val", 0, N_REG_IMAGES,
                        backend=backend, matcher=matcher, device="cuda", timer=timer,
                        stages=stages)
@@ -884,6 +956,9 @@ def run_registration(cfg_kw: dict, tmp: str, seed: int = 3, name: str = "reg",
     res["ok"] = (res["launches"] == res["want"] and not any(res["plain_calls"].values())
                  and not res["failures"] and fwd > 0
                  and with_boxes == listed and len(with_boxes) == N_REG_IMAGES)
+    if route == "all":
+        res["stages_2_to_5"] = check_all_route_outputs(cold, loader)
+        res["ok"] = res["ok"] and res["stages_2_to_5"]["ok"]
 
     timer = StageTimer()
     t0 = time.perf_counter()
@@ -891,12 +966,138 @@ def run_registration(cfg_kw: dict, tmp: str, seed: int = 3, name: str = "reg",
     warm_s = time.perf_counter() - t0
     res["warm_s"] = warm_s
     res["images_per_s"] = N_REG_IMAGES / warm_s
-    res["stage_s"] = {k: timer.stats[k].total_seconds for k in chain}
+    res["stage_s"] = {k: timer.stats[k].total_seconds for k in stage_names}
     res["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    prof = profile_pass(lambda: run(os.path.join(tmp, f"{name}_prof")))
+    prof = profile_pass(lambda: run(os.path.join(tmp, f"{name}_prof")), host=trace_host)
     res["profile"] = prof
     res["idle_share"] = (1.0 - prof["device_ms"] / (warm_s * 1e3) if prof["device_ms"] > 0
                          else "not measured")
+    return res
+
+
+def check_scene_plys(save_dir: str, loader) -> int:
+    """Scenes whose two PLYs exist, with one point-cloud vertex a pixel."""
+    from labelany3d_tpu_torch.data.meshio import load_ply_points
+    from labelany3d_tpu_torch.pipeline.scene import scene_dir_name
+
+    n = 0
+    for info in loader.images:
+        root = Path(save_dir) / "val" / scene_dir_name(info["file_name"])
+        if not (root / "depth_scene_no_edge.ply").exists():
+            continue
+        pts, cols = load_ply_points(root / "depth_scene.ply")
+        n += pts.shape == (info["height"] * info["width"], 3) and cols is not None
+    return n
+
+
+def boxes_against_cpu(cfg, loader, save_dir: str) -> dict:
+    """The boxes stage's first batch labelled on the card and on the CPU,
+    from the same depth, packed masks and draws (the stage's own host prep);
+    and the first scene's edge-filtered mesh on both, from the same depth.
+    Box error is absolute, relative above 1 (depths reach the hundreds)."""
+    import numpy as np
+    import torch
+
+    from labelany3d_tpu_torch.geometry.backproject import depth_to_points, draw_instance_ranks
+    from labelany3d_tpu_torch.geometry.edges import edge_filtered_scene_mesh
+    from labelany3d_tpu_torch.pipeline.labeling import unpack_instance_masks
+    from labelany3d_tpu_torch.pipeline.scene import SceneDir, scene_dir_name
+    from labelany3d_tpu_torch.pipeline.stages import BoxStage
+
+    scenes = [(info, SceneDir(os.path.join(save_dir, "val", scene_dir_name(info["file_name"]))))
+              for info in loader.images[:cfg.batch_size]]
+    probe = BoxStage(cfg, loader, save_dir, "val", device="cpu")
+    group = [g for g in map(probe._prep, scenes) if g is not None]
+    packed = torch.as_tensor(np.stack([g[6] for g in group]).astype(np.int64))
+    depth = torch.as_tensor(np.stack([g[4] for g in group]))
+    ok_px = (depth > 0) & (depth < 9000.0) & torch.isfinite(depth)
+    eff = unpack_instance_masks(packed, cfg.max_instances) & ok_px[:, None]
+    ranks = draw_instance_ranks(eff.flatten(-2).sum(-1), cfg.num_points,
+                                torch.Generator().manual_seed(9))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        boxes = BoxStage(cfg, loader, save_dir, "val", device=dev,
+                         draws=[ranks.to(dev)]).label(group).boxes
+        out[dev] = type(boxes)(*(t.cpu() for t in boxes))
+    ok = out["cpu"].ok
+    err = max(float(((getattr(out["cuda"], f) - getattr(out["cpu"], f)).abs()
+                     / getattr(out["cpu"], f).abs().clamp_min(1.0))[ok].max())
+              for f in ("center_cam", "dimensions", "R_cam"))
+    depth0 = scenes[0][1].read_depth()
+    K0 = np.asarray(scenes[0][1].read_cam_params()["K"], np.float32)
+    image0 = loader.pixels[scenes[0][0]["id"]]
+    faces = {}
+    for dev in ("cuda", "cpu"):
+        d = torch.as_tensor(depth0, device=dev)
+        pts = depth_to_points(d, torch.as_tensor(K0, device=dev))
+        faces[dev] = len(edge_filtered_scene_mesh(pts, image0, d, (d > 0) & (d < 9000))[1])
+    face_rel = abs(faces["cuda"] - faces["cpu"]) / max(faces["cpu"], 1)
+    return {"box_err": err, "boxes": int(ok.sum()),
+            "ok_equal": bool(torch.equal(out["cuda"].ok, ok)),
+            "mesh_faces_card": faces["cuda"], "mesh_faces_cpu": faces["cpu"],
+            "mesh_face_rel_diff": face_rel,
+            "ok": (bool(torch.equal(out["cuda"].ok, ok)) and int(ok.sum()) > 0
+                   and err <= BOX_TOL and face_rel <= MESH_FACE_TOL)}
+
+
+def run_boxes_route(tmp: str) -> dict:
+    """The `boxes` route on the card over the `fast` route's 16 images at
+    the `large` preset: depth with the scene PLYs, boxes with
+    `bbox_method=minarea_pallas`, export. Cold pass (launch counts read
+    here), then the checks against the CPU, then a warm pass (timed)."""
+    import torch
+
+    from labelany3d_tpu_torch.pipeline.backends import default_registry
+    from labelany3d_tpu_torch.pipeline.config import PipelineConfig
+    from labelany3d_tpu_torch.pipeline.runner import run_stages
+    from labelany3d_tpu_torch.pipeline.stages import DepthStage
+    from labelany3d_tpu_torch.pipeline.stages.common import ArrayImageSource
+    from labelany3d_tpu_torch.utils.profiling import StageTimer
+
+    cfg = PipelineConfig(bbox_method="minarea_pallas")
+    loader = SyntheticLoader(N_IMAGES, IMAGE_HW, seed=0)
+    source = ArrayImageSource(loader.pixels)
+    backend = default_registry().get("depth", preset="large", pin_hw=cfg.bucket_sizes()[0],
+                                     device="cuda", seed=cfg.seed)
+    counters, plains = kernel_counters()
+
+    def run(out_dir, timer):
+        with timer.measure("depth"):
+            n = DepthStage(cfg, backend, loader, source, out_dir, "val",
+                           write_ply=True).run(0, N_IMAGES)
+        timer.add_items("depth", n)
+        for stage in ("boxes", "export"):
+            run_stages(stage, cfg, loader, source, out_dir, "val", 0, N_IMAGES,
+                       device="cuda", timer=timer)
+        torch.cuda.synchronize()
+
+    for c in (*counters.values(), *plains.values()):
+        c.reset()
+    res = {}
+    t0 = time.perf_counter()
+    cold = os.path.join(tmp, "boxes_cold")
+    run(cold, StageTimer())
+    res["cold_s"] = time.perf_counter() - t0
+    res["launches"] = {k: c.count for k, c in counters.items()}
+    res["plain_calls"] = {k: c.count for k, c in plains.items()}
+    batches = -(-N_IMAGES // cfg.batch_size)
+    res["want"] = {"k1": batches * (backend.moge_cfg.backbone.depth
+                                    + backend.dp_cfg.backbone.depth),
+                   "k2": 0, "k3": 0, "k4": batches}
+    with_boxes, listed, _ = check_scene_outputs(cold, loader)
+    res["scenes_with_boxes"], res["coco3d_images"] = len(with_boxes), len(listed)
+    res["scenes_with_plys"] = check_scene_plys(cold, loader)
+    res["check"] = boxes_against_cpu(cfg, loader, cold)
+    res["ok"] = (res["launches"] == res["want"] and not any(res["plain_calls"].values())
+                 and with_boxes == listed and bool(with_boxes)
+                 and res["scenes_with_plys"] == N_IMAGES and res["check"]["ok"])
+
+    timer = StageTimer()
+    t0 = time.perf_counter()
+    run(os.path.join(tmp, "boxes_warm"), timer)
+    res["warm_s"] = time.perf_counter() - t0
+    res["images_per_s"] = N_IMAGES / res["warm_s"]
+    res["stage_s"] = {k: timer.stats[k].total_seconds for k in ("depth", "boxes", "export")}
     return res
 
 
@@ -953,7 +1154,10 @@ def kernel_checks() -> dict:
           "rope_encoder": check_flash(36, 1024, 1024, seed=14, heads=16, timed=True),
           "rope_segment_ids": check_flash(4, 1024, 1024, seed=15, heads=16, pad_keys=101),
           "decoder_1024": check_flash(32, 1024, 1024, seed=16, timed=True),
-          "stage_b_1024": check_flash(4, 1024, 1024, seed=17, timed=True)}
+          "stage_b_1024": check_flash(4, 1024, 1024, seed=17, timed=True),
+          # Stage B's rope encoder: 4 references + 4 views (match_pairs
+          # buckets both to 4).
+          "rope_encoder_stage_b": check_flash(8, 1024, 1024, seed=18, heads=16, timed=True)}
     for name, r in k2.items():
         _say(f"K2:{name}", **r, max_abs_tol=K2_MAX_ABS_TOL, rel_tol=K2_REL_TOL)
     bad = [n for n, r in k2.items() if not r["finite"] or r["max_abs_err"] > K2_MAX_ABS_TOL
@@ -1000,6 +1204,14 @@ def kernel_checks() -> dict:
     return {"k2": k2, "k3": k3, "k4": k4}
 
 
+def module_version(name: str) -> str:
+    """An optional module's version, or "missing" (the overlay needs OpenCV)."""
+    try:
+        return getattr(__import__(name), "__version__", "present")
+    except ImportError:
+        return "missing"
+
+
 def main() -> int:
     import torch
 
@@ -1025,7 +1237,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=30).stdout.strip().splitlines()
     _say("device", kind=json.dumps(kind), count=torch.cuda.device_count(),
-         torch=torch.__version__, cuda=torch.version.cuda)
+         torch=torch.__version__, cuda=torch.version.cuda,
+         opencv=module_version("cv2"), pillow=module_version("PIL"))
     print(smi[0] if smi else "nvidia-smi: unavailable", flush=True)
 
     # 2. Kernel build: one nvcc per source, all started together.
@@ -1192,6 +1405,43 @@ def main() -> int:
         if not ref["ok"]:
             raise SystemExit("reference chain: launches, plain calls, failures or scene "
                              "artifacts are not as required (see reference:cold)")
+        torch.cuda.empty_cache()
+
+        # 9. The boxes route: depth with the scene PLYs -> boxes (K4) ->
+        # export, at the large preset over phase 6's 16 images.
+        box = run_boxes_route(tmp)
+        _say("boxes:cold", s=box["cold_s"], launches=json.dumps(box["launches"]),
+             want=json.dumps(box["want"]), plain_calls=json.dumps(box["plain_calls"]),
+             scenes_with_plys=box["scenes_with_plys"],
+             scenes_with_boxes=box["scenes_with_boxes"], coco3d_images=box["coco3d_images"])
+        _say("boxes:check", **box["check"], box_tol=BOX_TOL, mesh_face_tol=MESH_FACE_TOL)
+        _say("boxes:warm", s=box["warm_s"], images_per_s=box["images_per_s"],
+             stage_s=json.dumps(box["stage_s"]))
+        if not box["ok"]:
+            raise SystemExit("boxes route: launches, plain calls, PLYs, scene artifacts or "
+                             "the card/CPU checks are not as required (see boxes:*)")
+        torch.cuda.empty_cache()
+
+        # 10. The all route at its shipping defaults over phase 7's images.
+        # Its traced pass records the device only: host-op tracing makes a
+        # chain's traced pass several times longer (phase 7 lists host ops).
+        allr = run_registration({}, tmp, name="all", route="all", trace_host=False)
+        p10 = allr["profile"]
+        _say("all:cold", s=allr["cold_s"], forwards=allr["forwards"],
+             launches=json.dumps(allr["launches"]), want=json.dumps(allr["want"]),
+             plain_calls=json.dumps(allr["plain_calls"]), failures=json.dumps(allr["failures"]),
+             scenes_with_boxes=allr["scenes_with_boxes"], coco3d_images=allr["coco3d_images"],
+             f16_overflow_boxes=allr["f16_overflow_boxes"],
+             stages_2_to_5=json.dumps(allr["stages_2_to_5"]))
+        _say("all:warm", s=allr["warm_s"], images_per_s=allr["images_per_s"],
+             stage_s=json.dumps(allr["stage_s"]), max_memory_gb=allr["max_memory_gb"])
+        _say("all:profile", traced_wall_ms=p10["wall_ms"], device_ms=p10["device_ms"],
+             **{f"{k}_device_ms": p10[f"{k}_ms"] for k in PROFILE_NAMES},
+             idle_share_of_warm_pass=allr["idle_share"],
+             top_device=json.dumps(p10["top_device"]), top_host=json.dumps(p10["top_host"]))
+        if not allr["ok"]:
+            raise SystemExit("all route: launches, plain calls, failures, enhanced images, "
+                             "crops or scene artifacts are not as required (see all:cold)")
 
     def row(name, source, replaces, launches, r, max_abs_err, **extra):
         return {"name": name, "route": "cuda", "source": f"labelany3d_tpu_torch/csrc/{source}",
@@ -1212,6 +1462,8 @@ def main() -> int:
             launches, k1["moge"], max(r["max_abs_err"] for r in k1.values()),
             launches_registration=reg["launches"]["k1"],
             launches_reference_chain=ref["launches"]["k1"],
+            launches_boxes_route=box["launches"]["k1"],
+            launches_all_route=allr["launches"]["k1"],
             shape="MoGe B=8 Npad=1408 n_real=1297 H=16 d=64", design=design,
             ratio_to_library=k1["moge"]["ratio_to_library"],
             share_of_bound=k1["moge"]["share_of_bound"], sass=sass["k1"],
@@ -1221,14 +1473,17 @@ def main() -> int:
         row("flash_attention", "flash_attention.cu", "labelany3d_tpu/ops/attention.py:42",
             reg["launches"]["k2"], k2["path"], max(r["max_abs_err"] for r in k2.values()),
             launches_reference_chain=ref["launches"]["k2"],
+            launches_all_route=allr["launches"]["k2"],
             shape="q, k, v (32, 1296, 12, 64) bf16", design=design,
             ratio_to_library=k2["path"]["ratio_to_library"],
             share_of_bound=k2["path"]["share_of_bound"], sass=sass["k2"],
             **{name: {k: k2[name][k] for k in timed}
-               for name in ("rope_encoder", "decoder_1024", "stage_b_1024")}),
+               for name in ("rope_encoder", "rope_encoder_stage_b", "decoder_1024",
+                            "stage_b_1024")}),
         row("nn_argmax", "nn_argmax.cu", "labelany3d_tpu/ops/reciprocal_nn.py:29",
             reg["launches"]["k3"], k3["path_bf16"], max(r["max_abs_err"] for r in k3.values()),
             launches_reference_chain=ref["launches"]["k3"],
+            launches_all_route=allr["launches"]["k3"],
             shape="query (32, 4096, 24) x bank (32, 262144, 24), bf16 operands",
             design=NN_DESIGN, sass=sass["k3"], share_of_bound=k3["path_bf16"]["share_of_bound"],
             library="none at 32 x 4096 (a 68 GB score matrix); see compact and one_pair",
@@ -1251,8 +1506,11 @@ def main() -> int:
             shape="points (16, 500, 2), 512 angles", design=YAW_DESIGN,
             timing="device time from CUDA-graph replays; eager_ms is the eager call's",
             eager_ms=k4["layout"]["eager_ms"],
-            fast={k: k4["fast"][k]
-                  for k in ("ms", "plain_ms", "eager_ms", "bound_ms", "bound_by")}),
+            launches_all_route=allr["launches"]["k4"],
+            launches_boxes_route=box["launches"]["k4"],
+            fast={"launches_boxes_route": box["launches"]["k4"],
+                  **{k: k4["fast"][k]
+                     for k in ("ms", "plain_ms", "eager_ms", "bound_ms", "bound_by")}}),
     ]}
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

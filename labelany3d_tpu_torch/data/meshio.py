@@ -1,14 +1,16 @@
-"""Minimal GLB (binary glTF 2.0) mesh IO and surface sampling.
+"""Minimal GLB (binary glTF 2.0) and PLY mesh IO, and surface sampling.
 
 A copy of the vertex-coloured subset of `labelany3d_tpu/data/meshio.py`:
 
   * GLB read: POSITION + indices (+ COLOR_0) of every mesh primitive, node
     transforms applied;
   * GLB write: one triangle mesh with optional vertex colours;
+  * binary little-endian PLY point clouds and triangle meshes (the depth
+    stage's scene PLYs), byte for byte as the JAX package writes them;
   * area-weighted surface sampling (trimesh.sample equivalent).
 
 Textured GLBs (TEXCOORD_0 + a baseColor texture, TRELLIS's output) raise
-until TRELLIS is ported; PLY IO waits with `geometry/edges.py`.
+until TRELLIS is ported.
 """
 
 from __future__ import annotations
@@ -218,3 +220,66 @@ def save_glb(path, mesh: Mesh) -> None:
         fh.write(js)
         fh.write(struct.pack("<II", len(bin_blob), _CHUNK_BIN))
         fh.write(bin_blob)
+
+
+def _ply_vertex_header(n: int, colors: np.ndarray | None) -> tuple[list[str], np.ndarray | None]:
+    """The vertex element's header lines and the colours as uint8 (clipped
+    when given in another dtype)."""
+    header = ["ply", "format binary_little_endian 1.0", f"element vertex {n}",
+              "property float x", "property float y", "property float z"]
+    if colors is not None:
+        colors = np.asarray(colors).reshape(-1, 3)
+        if colors.dtype != np.uint8:
+            colors = np.clip(colors, 0, 255).astype(np.uint8)
+        header += ["property uchar red", "property uchar green", "property uchar blue"]
+    return header, colors
+
+
+def _ply_vertex_bytes(pts: np.ndarray, colors: np.ndarray | None) -> bytes:
+    if colors is None:
+        return pts.tobytes()
+    rec = np.zeros(len(pts), dtype=[("xyz", np.float32, 3), ("rgb", np.uint8, 3)])
+    rec["xyz"] = pts
+    rec["rgb"] = colors
+    return rec.tobytes()
+
+
+def save_ply_points(path, points: np.ndarray, colors: np.ndarray | None = None) -> None:
+    """Binary little-endian PLY point cloud (`depth_scene.ply`)."""
+    pts = np.asarray(points, np.float32).reshape(-1, 3)
+    header, colors = _ply_vertex_header(len(pts), colors)
+    with open(path, "wb") as f:
+        f.write(("\n".join(header + ["end_header"]) + "\n").encode())
+        f.write(_ply_vertex_bytes(pts, colors))
+
+
+def save_ply_mesh(path, vertices: np.ndarray, faces: np.ndarray,
+                  colors: np.ndarray | None = None) -> None:
+    """Binary little-endian PLY triangle mesh (`depth_scene_no_edge.ply`)."""
+    v = np.asarray(vertices, np.float32).reshape(-1, 3)
+    f = np.asarray(faces, np.int32).reshape(-1, 3)
+    header, colors = _ply_vertex_header(len(v), colors)
+    header += [f"element face {len(f)}", "property list uchar int vertex_indices",
+               "end_header"]
+    frec = np.zeros(len(f), dtype=[("n", np.uint8), ("idx", np.int32, 3)])
+    frec["n"] = 3
+    frec["idx"] = f
+    with open(path, "wb") as fh:
+        fh.write(("\n".join(header) + "\n").encode())
+        fh.write(_ply_vertex_bytes(v, colors))
+        fh.write(frec.tobytes())
+
+
+def load_ply_points(path) -> tuple[np.ndarray, np.ndarray | None]:
+    """The vertices (and colours, if any) of a binary little-endian PLY
+    written by `save_ply_points` or `save_ply_mesh`."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    end = raw.index(b"end_header\n") + len(b"end_header\n")
+    header = raw[:end].decode().splitlines()
+    n = next(int(line.split()[-1]) for line in header if line.startswith("element vertex"))
+    if "property uchar red" in header:
+        rec = np.frombuffer(raw, dtype=[("xyz", np.float32, 3), ("rgb", np.uint8, 3)],
+                            count=n, offset=end)
+        return rec["xyz"].copy(), rec["rgb"].copy()
+    return np.frombuffer(raw, np.float32, n * 3, end).reshape(n, 3).copy(), None

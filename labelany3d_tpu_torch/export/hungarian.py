@@ -1,7 +1,8 @@
 """IoU-based bipartite matching on the host (scipy), as
 `labelany3d_tpu/export/hungarian.py::hungarian_match`, except that a pair
-with a non-finite IoU scores 0 instead of raising. The on-device auction
-solver is not ported yet."""
+with a non-finite IoU scores 0 instead of raising. The JAX package's
+on-device auction solver (`auction_assignment`) is not ported: no route
+calls it (ROADMAP.md queue 1 item 4)."""
 
 from __future__ import annotations
 

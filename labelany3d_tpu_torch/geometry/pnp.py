@@ -97,7 +97,10 @@ def solve_pnp_dlt(obj_pts: torch.Tensor, img_pts: torch.Tensor, K: torch.Tensor,
     P = _smallest_eigvec_12(ata).reshape(*ata.shape[:-2], 3, 4)
 
     M = P[..., :3]
-    uM, sM, vMt = torch.linalg.svd(M)
+    # A non-finite system (a zero focal makes K^-1 infinite) has no pose: its
+    # R and t are NaN, as the JAX SVD returns them, where torch's would raise.
+    bad = ~torch.isfinite(M).flatten(-2).all(-1)
+    uM, sM, vMt = torch.linalg.svd(torch.where(bad[..., None, None], torch.zeros_like(M), M))
     scale = sM.mean(-1).clamp_min(1e-12)
     det = torch.linalg.det(uM @ vMt)
     ones2 = torch.ones(*det.shape, 2, dtype=torch.float32, device=det.device)
@@ -113,8 +116,10 @@ def solve_pnp_dlt(obj_pts: torch.Tensor, img_pts: torch.Tensor, K: torch.Tensor,
         return (cam_z > 0).sum(-1)
 
     use_neg = front_count(R_neg, t_neg) > front_count(R_pos, t_pos)
-    return (torch.where(use_neg[..., None, None], R_neg, R_pos),
-            torch.where(use_neg[..., None], t_neg, t_pos))
+    nan = torch.tensor(float("nan"), device=M.device)
+    return (torch.where(bad[..., None, None], nan,
+                        torch.where(use_neg[..., None, None], R_neg, R_pos)),
+            torch.where(bad[..., None], nan, torch.where(use_neg[..., None], t_neg, t_pos)))
 
 
 @f32_precision

@@ -118,3 +118,17 @@ def resize(x: torch.Tensor, size: tuple[int, int], method: str = "bilinear",
     down = size[0] < x.shape[-2] or size[1] < x.shape[-1]
     return F.interpolate(x, size=tuple(size), mode=method, align_corners=False,
                          antialias=method == "bicubic" or (antialias and down))
+
+
+def resize_bicubic_8bit(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """NCHW 8-bit values resized as Pillow's `Image.resize(size, BICUBIC)`
+    resizes an 8-bit image: Keys' kernel (a = -0.5, widened and renormalised
+    as `resize` does), the horizontal pass first, and each pass's result
+    rounded half up and clipped to [0, 255], as Pillow stores it in 8 bits
+    between the passes. Pillow sums in fixed point, so a value whose exact
+    sum lies near .5 may land one level away. Returns float32 integers."""
+    y = x.float()
+    for hw in ((y.shape[-2], size[1]), tuple(size)):
+        if tuple(y.shape[-2:]) != hw:
+            y = torch.floor(resize(y, hw, method="bicubic") + 0.5).clamp(0, 255)
+    return y

@@ -5,7 +5,9 @@ mirrors `JaxDepthBackend` (MoGe gives relative depth and intrinsics;
 DepthPro, conditioned on MoGe's focal, gives metric depth),
 `FakeDepthBackend` serves pre-registered analytic depth for tests, and
 `TorchMatcherBackend` mirrors `JaxMatcherBackend` (TwoViewMatcher +
-reciprocal NN) for the layout stage's registration.
+reciprocal NN) for the layout stage's registration. The stage-2 to stage-6
+factories give the shipping defaults and raise for the generative backends
+that are not ported.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from labelany3d_tpu_torch.models.depth_pro import (
     depth_pro35_infer,
     depth_pro_infer,
 )
-from labelany3d_tpu_torch.models.layers import resize
+from labelany3d_tpu_torch.models.layers import resize, resize_bicubic_8bit
 from labelany3d_tpu_torch.models.moge import (
     MoGeConfig,
     MoGeModel,
@@ -213,11 +215,13 @@ class TorchMatcherBackend:
 
     @staticmethod
     def _prep_ref(ref_rgba: np.ndarray, h: int, w: int) -> np.ndarray:
+        """The reference crop's RGB at the views' size. A crop of another
+        size goes through 8 bits (truncated) and Pillow's default resize
+        (bicubic), as in the JAX backend."""
         ref = np.asarray(ref_rgba, np.float32)[..., :3]
         if ref.shape[:2] != (h, w):
-            raise NotImplementedError(
-                f"reference crop {ref.shape[:2]} differs from the render size {(h, w)}; "
-                "the crop resize is not ported yet (set crop_size == render_size)")
+            x = torch.from_numpy((ref * 255).astype(np.uint8)).permute(2, 0, 1)[None]
+            ref = resize_bicubic_8bit(x, (h, w))[0].permute(1, 2, 0).numpy() / np.float32(255.0)
         return ref
 
     @torch.inference_mode()
@@ -298,9 +302,60 @@ def make_depth(preset: str = "large", **kw) -> TorchDepthBackend:
                              DepthProConfig(backbone=backbone()), **kw)
 
 
+# The generative backends of stages 2 to 6 that are not ported, and where
+# ROADMAP.md queue 1 has them. Their names raise instead of falling back.
+_NOT_PORTED = {"invsr": "item 6, the SD-class stack", "our": "item 6, the SD-class stack",
+               "zero123": "item 6, the SD-class stack", "trellis": "item 5, TRELLIS",
+               "hunyuan3d": "item 7, Hunyuan3D", "hunyuan3d_carve": "item 7, Hunyuan3D"}
+
+
+def _shipping_default(kind: str, backend: str, default: str, make):
+    """`make()` for the stage's shipping-default backend name; raise for any
+    other."""
+    if backend in _NOT_PORTED:
+        raise NotImplementedError(f"{kind} backend {backend!r} is not ported yet "
+                                  f"(ROADMAP.md queue 1 {_NOT_PORTED[backend]})")
+    if backend != default:
+        raise ValueError(f"Unknown {kind} backend {backend!r} (the port has {default!r})")
+    return make()
+
+
+def make_enhance(backend: str = "bicubic", device=None, **_kw):
+    """'bicubic' (the shipping default); 'invsr' is not ported."""
+    from labelany3d_tpu_torch.pipeline.stages.generative import BicubicEnhance
+
+    return _shipping_default("enhance", backend, "bicubic", lambda: BicubicEnhance(device=device))
+
+
+def make_completion(backend: str = "none", **_kw):
+    """'none' (passthrough, the shipping default); 'our' is not ported."""
+    from labelany3d_tpu_torch.pipeline.stages.generative import PassthroughCompletion
+
+    return _shipping_default("completion", backend, "none", PassthroughCompletion)
+
+
+def make_elevation(backend: str = "zero", **_kw):
+    """'zero' (the shipping default); 'zero123' is not ported."""
+    from labelany3d_tpu_torch.pipeline.stages.generative import ZeroElevation
+
+    return _shipping_default("elevation", backend, "zero", ZeroElevation)
+
+
+def make_reconstruction(backend: str = "silhouette", **_kw):
+    """'silhouette' (the shipping default); 'trellis', 'hunyuan3d' and
+    'hunyuan3d_carve' are not ported."""
+    from labelany3d_tpu_torch.pipeline.stages.generative import SilhouetteExtrude
+
+    return _shipping_default("obj_rec", backend, "silhouette", SilhouetteExtrude)
+
+
 def default_registry() -> ModelRegistry:
-    """A registry with the production factories: 'depth' and 'matcher'."""
+    """A registry with the production factories: 'depth', 'enhance',
+    'completion', 'elevation', 'reconstruction' and 'matcher'."""
     reg = ModelRegistry()
-    reg.register("depth", make_depth)
-    reg.register("matcher", TorchMatcherBackend)
+    for name, factory in (("depth", make_depth), ("enhance", make_enhance),
+                          ("completion", make_completion), ("elevation", make_elevation),
+                          ("reconstruction", make_reconstruction),
+                          ("matcher", TorchMatcherBackend)):
+        reg.register(name, factory)
     return reg

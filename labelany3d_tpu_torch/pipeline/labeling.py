@@ -68,6 +68,16 @@ def label_instances(depth, K, masks, draws: torch.Tensor | None = None, *,
     return LabelingOutput(boxes=boxes, points=points, num_valid=valid_inst.sum(-1))
 
 
+def label_program(depth, K, packed, *, max_instances: int, num_points: int, method: str,
+                  draws: torch.Tensor | None = None,
+                  generator: torch.Generator | None = None) -> LabelingOutput:
+    """Box labeling of a batch from bit-packed masks (the boxes stage):
+    depth (B, H, W), K (B, 3, 3), packed (B, H, W) bitfield; `draws`
+    (B, I, S) sample ranks, else drawn from `generator`."""
+    return label_instances(depth, K, unpack_instance_masks(packed, max_instances), draws,
+                           generator=generator, num_points=num_points, method=method)
+
+
 def fused_label_program(rel, met, dmask, K, packed, *, max_instances: int, num_points: int,
                         method: str, draws: LabelingDraws | None = None,
                         generator: torch.Generator | None = None):

@@ -1,21 +1,25 @@
 """CLI entry point: `python -m labelany3d_tpu_torch.pipeline.runner <stage> ...`.
 
-Counterpart of `labelany3d_tpu/pipeline/runner.py` for the stages the port
-has: the same flags (--config, --start_index, --end_index, --split,
---save_dir, --dataset_root) plus dotted `key=value` config overrides.
+Counterpart of `labelany3d_tpu/pipeline/runner.py`: the same flags
+(--config, --start_index, --end_index, --split, --save_dir, --dataset_root)
+plus dotted `key=value` config overrides. Stages:
 
   depth           stage 1  (MoGe + DepthPro -> aligned depth)
+  enhance         stage 2  (4x upscale; run.enhance)
   crops           stage 3  (instance crops)
-  reconstruction  stage 6  (image -> 3D, silhouette extrusion)
+  completion      stage 4  (amodal completion; run.amodal_completion)
+  elevation       stage 5  (per-object elevation; run.elevation)
+  reconstruction  stage 6  (image -> 3D; run.obj_rec)
   layout          stage 7  (register meshes + ground-aligned boxes)
+  boxes           stage 7's depth-only path (no generative stack)
   export          stage 8  (COCO3D Omni3D JSON)
   fast            fused depth + boxes -> crops -> export
+  all             the eight stages in turn over the index range
 
-The registration chain is depth, crops, reconstruction, layout, export,
-run one stage after the other (stages 2, 4 and 5 are not ported; layout
-runs without their artifacts, as at their shipping defaults).
-
-Runs on CUDA; `--device cpu` runs the plain PyTorch path on the CPU.
+The port has the shipping-default backend of each of stages 2, 4, 5 and 6;
+the generative ones raise. Unlike the JAX runner, `all` keeps every stage's
+models loaded. Runs on CUDA; `--device cpu` runs the plain PyTorch path on
+the CPU. The JAX runner's `--wild` mode is not ported.
 """
 
 from __future__ import annotations
@@ -25,7 +29,10 @@ import argparse
 from labelany3d_tpu_torch.pipeline.config import PipelineConfig, load_config
 from labelany3d_tpu_torch.utils.profiling import StageTimer
 
-_STAGES = ["depth", "crops", "reconstruction", "layout", "export", "fast"]
+_STAGES = [
+    "depth", "enhance", "crops", "completion", "elevation",
+    "reconstruction", "layout", "boxes", "export", "fast", "all",
+]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -43,20 +50,29 @@ def build_parser() -> argparse.ArgumentParser:
 
 def run_stages(stage: str, cfg: PipelineConfig, loader, source, save_dir: str, split: str,
                start_index: int, end_index: int, *, backend=None, matcher=None,
-               preset: str = "large", device=None,
+               enhance=None, completion=None, elevation=None,
+               run_options: dict | None = None, preset: str = "large", device=None,
                timer: StageTimer | None = None, stages: dict | None = None) -> dict:
     """Run one route over an index range; returns {stage: count}.
 
     `backend` defaults to `make_depth(preset)` pinned to the first bucket,
     and `matcher` to the registry's `TorchMatcherBackend` (the tiny matcher,
     as in the JAX package), both with random weights seeded from
-    `cfg.seed`.
+    `cfg.seed`. The `enhance`, `completion` and `elevation` backends, and
+    the reconstruction backend, default to the registry's choice from
+    `run_options` (the config's `run` section: `enhance`,
+    `amodal_completion`, `elevation`, `obj_rec`), whose defaults are the
+    shipping ones.
     `stages`, when given, receives each stage object by name (a caller can
     read `stages["layout"].failures`)."""
     from labelany3d_tpu_torch.pipeline.backends import default_registry
     from labelany3d_tpu_torch.pipeline.stages import (
+        BoxStage,
+        CompletionStage,
         CropStage,
         DepthStage,
+        ElevationStage,
+        EnhanceStage,
         ExportStage,
         FusedFastStage,
         LayoutStage,
@@ -66,13 +82,14 @@ def run_stages(stage: str, cfg: PipelineConfig, loader, source, save_dir: str, s
     timer = timer or StageTimer()
     counts = {}
     stages = {} if stages is None else stages
+    run_options = run_options or {}
+    registry = default_registry()
 
     def depth_backend():
         nonlocal backend
         if backend is None:
-            backend = default_registry().get("depth", preset=preset,
-                                             pin_hw=cfg.bucket_sizes()[0], device=device,
-                                             seed=cfg.seed)
+            backend = registry.get("depth", preset=preset, pin_hw=cfg.bucket_sizes()[0],
+                                   device=device, seed=cfg.seed)
         return backend
 
     def run_fused():
@@ -83,32 +100,65 @@ def run_stages(stage: str, cfg: PipelineConfig, loader, source, save_dir: str, s
         stages["depth"] = DepthStage(cfg, depth_backend(), loader, source, save_dir, split)
         return stages["depth"].run(start_index, end_index)
 
+    def run_enhance():
+        nonlocal enhance
+        if enhance is None:
+            enhance = registry.get("enhance", backend=str(run_options.get("enhance", "bicubic")),
+                                   device=device)
+        return EnhanceStage(cfg, loader, source, save_dir, split,
+                            backend=enhance).run(start_index, end_index)
+
+    def run_crops():
+        # At CropStage's 512 px, as in the JAX package; the matcher resizes
+        # reference crops to its views' size.
+        return CropStage(cfg, loader, source, save_dir, split,
+                         device=device).run(start_index, end_index)
+
+    def run_completion():
+        nonlocal completion
+        if completion is None:
+            mode = run_options.get("amodal_completion")
+            completion = registry.get("completion", backend="our" if mode == "our" else "none")
+        return CompletionStage(cfg, loader, save_dir, split,
+                               backend=completion).run(start_index, end_index)
+
+    def run_elevation():
+        nonlocal elevation
+        if elevation is None:
+            elevation = registry.get("elevation",
+                                     backend=str(run_options.get("elevation", "zero")))
+        return ElevationStage(cfg, loader, save_dir, split,
+                              backend=elevation).run(start_index, end_index)
+
     def run_reconstruction():
-        stages["reconstruction"] = ReconstructionStage(cfg, loader, save_dir, split)
+        backend_3d = registry.get("reconstruction",
+                                  backend=str(run_options.get("obj_rec", "silhouette")))
+        stages["reconstruction"] = ReconstructionStage(cfg, loader, save_dir, split,
+                                                       backend=backend_3d)
         return stages["reconstruction"].run(start_index, end_index)
 
     def run_layout():
         nonlocal matcher
         if matcher is None:
-            matcher = default_registry().get("matcher", seed=cfg.seed, device=device)
+            matcher = registry.get("matcher", seed=cfg.seed, device=device)
         stages["layout"] = LayoutStage(cfg, loader, save_dir, split, matcher=matcher,
                                        device=device)
         return stages["layout"].run(start_index, end_index)
 
-    def run_crops():
-        # Crops at the render size (512 by default, as in the JAX package),
-        # so the matcher sees reference crops at its views' size: the
-        # reference-crop resize the JAX backend does with Pillow is not
-        # ported.
-        return CropStage(cfg, loader, source, save_dir, split, crop_size=cfg.render_size,
-                         device=device).run(start_index, end_index)
+    def run_boxes():
+        stages["boxes"] = BoxStage(cfg, loader, save_dir, split, device=device)
+        return stages["boxes"].run(start_index, end_index)
 
     def run_export():
         return len(ExportStage(save_dir, split).run()["images"])
 
-    routes = {"depth": [run_depth], "crops": [run_crops],
+    routes = {"depth": [run_depth], "enhance": [run_enhance], "crops": [run_crops],
+              "completion": [run_completion], "elevation": [run_elevation],
               "reconstruction": [run_reconstruction], "layout": [run_layout],
-              "export": [run_export], "fast": [run_fused, run_crops, run_export]}
+              "boxes": [run_boxes], "export": [run_export],
+              "fast": [run_fused, run_crops, run_export],
+              "all": [run_depth, run_enhance, run_crops, run_completion, run_elevation,
+                      run_reconstruction, run_layout, run_export]}
     for fn in routes[stage]:
         name = fn.__name__.replace("run_", "")
         with timer.measure(name):
@@ -133,8 +183,8 @@ def main(argv=None, device=None) -> int:
     preset = "tiny_test" if bool(cfg_node.models.tiny) else str(cfg_node.models.moge.preset)
     timer = StageTimer()
     run_stages(args.stage, cfg, loader, FileImageSource(images_root), args.save_dir,
-               args.split, start, end, preset=preset, device=device or args.device,
-               timer=timer)
+               args.split, start, end, run_options=cfg_node.run, preset=preset,
+               device=device or args.device, timer=timer)
     print(timer.report())
     return 0
 

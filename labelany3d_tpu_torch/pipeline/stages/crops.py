@@ -21,7 +21,7 @@ from labelany3d_tpu_torch.pipeline.config import PipelineConfig
 from labelany3d_tpu_torch.pipeline.scene import SceneDir, scene_dir_name
 from labelany3d_tpu_torch.pipeline.stages.common import ImageSource
 from labelany3d_tpu_torch.utils.device import resolve_device
-from labelany3d_tpu_torch.utils.png import write_png
+from labelany3d_tpu_torch.utils.png import read_png, write_png
 
 
 class CropStage:
@@ -69,10 +69,7 @@ class CropStage:
             if len(inst) == 0:
                 continue
             if scene.enhanced_image.exists():
-                from PIL import Image
-
-                with Image.open(scene.enhanced_image) as im:
-                    image = np.asarray(im.convert("RGB"))
+                image = read_png(scene.enhanced_image)[..., :3]
                 factor = 4  # masks are upscaled 4x to the enhanced resolution
             else:
                 image, factor = base_image, 1

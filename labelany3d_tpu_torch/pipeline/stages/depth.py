@@ -5,8 +5,9 @@ Counterpart of `labelany3d_tpu/pipeline/stages/depth.py`: per batch of
 RANSAC depth fusion run on the device; then one pool thread copies the
 results to the host and writes `depth_map.npy`, `cam_params.json` and
 `input.png` while the next batch is dispatched. Scenes whose depth exists
-are skipped. The scene point clouds (`write_ply`) wait for
-`geometry/edges.py`.
+are skipped. With `write_ply`, each scene also gets its point cloud
+(`depth_scene.ply`, every pixel, coloured) and its edge-filtered mesh
+(`depth_scene_no_edge.ply`), the edge filter on the backend's device.
 """
 
 from __future__ import annotations
@@ -16,6 +17,9 @@ import os
 import numpy as np
 import torch
 
+from labelany3d_tpu_torch.data.meshio import save_ply_mesh, save_ply_points
+from labelany3d_tpu_torch.geometry.backproject import depth_to_points
+from labelany3d_tpu_torch.geometry.edges import edge_filtered_scene_mesh
 from labelany3d_tpu_torch.pipeline.backends import DepthBackend
 from labelany3d_tpu_torch.pipeline.config import PipelineConfig
 from labelany3d_tpu_torch.pipeline.labeling import depth_fusion
@@ -27,15 +31,13 @@ from labelany3d_tpu_torch.utils.png import write_png
 class DepthStage:
     def __init__(self, cfg: PipelineConfig, backend: DepthBackend, loader,
                  image_source: ImageSource, save_dir: str, split: str, write_ply: bool = False):
-        if write_ply:
-            raise NotImplementedError("write_ply needs geometry/edges.py, which is not "
-                                      "ported yet")
         self.cfg = cfg
         self.backend = backend
         self.loader = loader
         self.image_source = image_source
         self.save_dir = save_dir
         self.split = split
+        self.write_ply = write_ply
         self.generator = torch.Generator(device=backend.device).manual_seed(cfg.seed)
 
     def _scene(self, info: dict) -> SceneDir:
@@ -48,8 +50,7 @@ class DepthStage:
         bucket = self.cfg.pick_bucket(*img.shape[:2])
         return info, scene, img, bucket, resize_image(img, *bucket)
 
-    @staticmethod
-    def _write(bucket, group, aligned_dev, K_dev):
+    def _write(self, bucket, group, aligned_dev, K_dev):
         aligned = aligned_dev.cpu().numpy()
         K_bucket = K_dev.cpu().numpy().astype(np.float32)
         bh, bw = bucket
@@ -58,10 +59,22 @@ class DepthStage:
             K = K_bucket[row].copy()
             K[0] *= ow / bw
             K[1] *= oh / bh
-            scene.write_depth(resize_nearest(aligned[row], oh, ow))
+            depth = resize_nearest(aligned[row], oh, ow)
+            scene.write_depth(depth)
             scene.write_cam_params(K, np.eye(4), ow, oh)
             if not scene.input_image.exists():
                 write_png(scene.input_image, img)
+            if self.write_ply:
+                self._write_ply(scene, img, depth, K)
+
+    def _write_ply(self, scene: SceneDir, img: np.ndarray, depth: np.ndarray, K: np.ndarray):
+        dev = self.backend.device
+        d = torch.as_tensor(depth, device=dev)
+        pts = depth_to_points(d, torch.as_tensor(K, device=dev))
+        save_ply_points(scene.root / "depth_scene.ply", pts.cpu().numpy().reshape(-1, 3),
+                        img.reshape(-1, 3))
+        mesh = edge_filtered_scene_mesh(pts, img, d, (d > 0) & (d < 9000))
+        save_ply_mesh(scene.root / "depth_scene_no_edge.ply", *mesh)
 
     @torch.inference_mode()
     def run(self, start_index: int, end_index: int) -> int:

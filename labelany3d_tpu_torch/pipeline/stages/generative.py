@@ -1,11 +1,19 @@
-"""Stage 6, reconstruction, with its deterministic default backend.
+"""Stages 2, 4, 5 and 6 with their shipping-default backends.
 
-Counterpart of the `SilhouetteExtrude` and `ReconstructionStage` parts of
-`labelany3d_tpu/pipeline/stages/generative.py`: each object crop becomes a
-mesh at `object_space/{id}.glb`. Enhancement, amodal completion and
-elevation (stages 2, 4, 5) run no kernel at their shipping defaults
-(bicubic, passthrough, 0 degrees); the layout stage copes without their
-artifacts, and they wait for a later port.
+Counterpart of `labelany3d_tpu/pipeline/stages/generative.py`:
+
+  * EnhanceStage (stage 2): 4x upscale -> `enhanced/input.png`. Default
+    backend: Pillow's BICUBIC, computed on the stage's device.
+  * CompletionStage (stage 4): amodal crop completion -> `crops/{id}_rgba.png`.
+    Default: passthrough (`run.amodal_completion=None`).
+  * ElevationStage (stage 5): per-object camera elevation ->
+    `object_space/{id}/estimated_elevation.npy`. Default: 0 degrees.
+  * ReconstructionStage (stage 6): image -> 3D -> `object_space/{id}.glb`.
+    Default: silhouette extrusion.
+
+Each stage skips the artifacts that exist (resume). The generative backends
+(diffusion SR, amodal completion, Zero123 elevation, TRELLIS, Hunyuan3D)
+are not ported; `pipeline/backends.py` raises for their names.
 """
 
 from __future__ import annotations
@@ -13,11 +21,49 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 from labelany3d_tpu_torch.data.meshio import Mesh, save_glb
+from labelany3d_tpu_torch.models.layers import resize_bicubic_8bit
 from labelany3d_tpu_torch.pipeline.config import PipelineConfig
 from labelany3d_tpu_torch.pipeline.scene import SceneDir, scene_dir_name
-from labelany3d_tpu_torch.utils.png import read_png
+from labelany3d_tpu_torch.utils.device import resolve_device
+from labelany3d_tpu_torch.utils.png import read_png, write_png
+
+
+class BicubicEnhance:
+    """Non-generative 4x upscale (the stage-2 default): Pillow's BICUBIC
+    (`models/layers.py::resize_bicubic_8bit`) on `device`."""
+
+    def __init__(self, factor: int = 4, device: str | torch.device | None = None):
+        self.factor = factor
+        self.device = resolve_device(device)
+
+    @torch.inference_mode()
+    def enhance(self, image: np.ndarray) -> np.ndarray:
+        h, w = image.shape[:2]
+        x = torch.tensor(image, device=self.device)
+        y = resize_bicubic_8bit(x.permute(2, 0, 1)[None], (h * self.factor, w * self.factor))
+        return y[0].permute(1, 2, 0).to(torch.uint8).cpu().numpy()
+
+
+class PassthroughCompletion:
+    """`run.amodal_completion=None`: the crop as it is."""
+
+    def complete(self, crop_rgba: np.ndarray, label: str) -> np.ndarray:
+        return crop_rgba
+
+
+class ZeroElevation:
+    """The 0-degree elevation (the reference's fallback when estimation fails)."""
+
+    def estimate(self, crop_rgba: np.ndarray) -> float:
+        from labelany3d_tpu_torch.utils.logging import warn_once
+
+        warn_once("elevation_zero",
+                  "elevation backend is the 0-degree fallback (no Zero123 weights): "
+                  "per-object camera elevation is not estimated")
+        return 0.0
 
 
 class SilhouetteExtrude:
@@ -85,32 +131,108 @@ class SilhouetteExtrude:
                     colors=np.asarray(colors, np.float32))
 
 
-class ReconstructionStage:
+class _PerSceneStage:
+    def __init__(self, cfg: PipelineConfig, loader, save_dir: str, split: str):
+        self.cfg = cfg
+        self.loader = loader
+        self.save_dir = save_dir
+        self.split = split
+
+    def _scenes(self, start_index: int, end_index: int):
+        for i in range(start_index, end_index):
+            info = self.loader.get_image_by_index(i)
+            yield info, SceneDir(os.path.join(self.save_dir, self.split,
+                                              scene_dir_name(info["file_name"]))).ensure()
+
+    @staticmethod
+    def _object_crop(scene: SceneDir, obj_id: str):
+        """The completed crop when stage 4 wrote one, else the plain crop."""
+        path = scene.crop_completed(obj_id)
+        return read_png(path if path.exists() else scene.crop(obj_id))
+
+
+class EnhanceStage(_PerSceneStage):
+    """Stage 2: the image -> `enhanced/input.png`, unless it exists."""
+
+    def __init__(self, cfg, loader, image_source, save_dir, split, backend=None,
+                 device: str | torch.device | None = None):
+        super().__init__(cfg, loader, save_dir, split)
+        self.image_source = image_source
+        self.backend = backend or BicubicEnhance(device=device)
+
+    def run(self, start_index: int, end_index: int) -> int:
+        done = 0
+        for info, scene in self._scenes(start_index, end_index):
+            if scene.enhanced_image.exists():
+                continue
+            out = self.backend.enhance(self.image_source.get(info))
+            scene.enhanced_image.parent.mkdir(exist_ok=True)
+            write_png(scene.enhanced_image, out)
+            done += 1
+        return done
+
+
+class CompletionStage(_PerSceneStage):
+    """Stage 4: every crop -> `crops/{id}_rgba.png`, unless it exists."""
+
+    def __init__(self, cfg, loader, save_dir, split, backend=None):
+        super().__init__(cfg, loader, save_dir, split)
+        self.backend = backend or PassthroughCompletion()
+
+    def run(self, start_index: int, end_index: int) -> int:
+        done = 0
+        for _info, scene in self._scenes(start_index, end_index):
+            for obj_id in scene.list_crop_ids():
+                out_path = scene.crop_completed(obj_id)
+                if out_path.exists():
+                    continue
+                label = obj_id.split("_", 1)[-1].replace("_", " ")
+                completed = self.backend.complete(read_png(scene.crop(obj_id)), label)
+                write_png(out_path, completed.astype(np.uint8))
+            done += 1
+        return done
+
+
+class ElevationStage(_PerSceneStage):
+    """Stage 5: every object's camera elevation (degrees) ->
+    `object_space/{id}/estimated_elevation.npy`, unless it exists."""
+
+    def __init__(self, cfg, loader, save_dir, split, backend=None):
+        super().__init__(cfg, loader, save_dir, split)
+        self.backend = backend or ZeroElevation()
+
+    def run(self, start_index: int, end_index: int) -> int:
+        done = 0
+        for _info, scene in self._scenes(start_index, end_index):
+            for obj_id in scene.list_crop_ids():
+                out_path = scene.elevation(obj_id)
+                if out_path.exists():
+                    continue
+                elev = float(self.backend.estimate(self._object_crop(scene, obj_id)))
+                out_path.parent.mkdir(parents=True, exist_ok=True)
+                np.save(out_path, np.float64(elev))
+            done += 1
+        return done
+
+
+class ReconstructionStage(_PerSceneStage):
     """Stage 6: every crop of a scene -> `object_space/{id}.glb`; existing
     meshes are kept (resume). Reads the completed crop when stage 4 wrote
     one, else the plain crop."""
 
     def __init__(self, cfg: PipelineConfig, loader, save_dir: str, split: str, backend=None):
-        self.cfg = cfg
-        self.loader = loader
-        self.save_dir = save_dir
-        self.split = split
+        super().__init__(cfg, loader, save_dir, split)
         self.backend = backend or SilhouetteExtrude()
 
     def run(self, start_index: int, end_index: int) -> int:
         done = 0
-        for i in range(start_index, end_index):
-            info = self.loader.get_image_by_index(i)
-            scene = SceneDir(os.path.join(self.save_dir, self.split,
-                                          scene_dir_name(info["file_name"]))).ensure()
+        for _info, scene in self._scenes(start_index, end_index):
             for obj_id in scene.list_crop_ids():
                 out_path = scene.object_mesh(obj_id)
                 if out_path.exists():
                     continue
-                crop_path = scene.crop_completed(obj_id)
-                if not crop_path.exists():
-                    crop_path = scene.crop(obj_id)
                 label = obj_id.split("_", 1)[-1].replace("_", " ")
-                save_glb(out_path, self.backend.reconstruct(read_png(crop_path), label))
+                save_glb(out_path, self.backend.reconstruct(self._object_crop(scene, obj_id),
+                                                            label))
             done += 1
         return done

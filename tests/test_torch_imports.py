@@ -27,6 +27,10 @@ def test_import_leaves_jax_out():
         "import labelany3d_tpu_torch.models.convert\n"
         "import labelany3d_tpu_torch.models.depth_pro\n"
         "import labelany3d_tpu_torch.models.matcher\n"
+        "import labelany3d_tpu_torch.geometry.edges\n"
+        "import labelany3d_tpu_torch.pipeline.stages.boxes\n"
+        "import labelany3d_tpu_torch.pipeline.stages.generative\n"
+        "import labelany3d_tpu_torch.data.meshio\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
     )
@@ -49,8 +53,24 @@ def test_source_scan_finds_no_forbidden_import():
     # The checkpoint models and converters are scanned too.
     assert {"convert.py", "depth_pro.py", "matcher.py", "moge.py", "vit.py"} <= \
         {f.name for f in files if f.parent.name == "models"}
+    # The modules of the boxes stage and of stages 2 to 6 are scanned too.
+    assert {"boxes.py", "generative.py"} <= {f.name for f in files if f.parent.name == "stages"}
+    assert (PKG / "geometry" / "edges.py") in files
     bad = [(f.name, m) for f in files for m in _imports(f) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+def test_stages_import_no_pillow_at_module_level():
+    """The card's machine has no Pillow: no stage module imports it at its
+    top level (only inside the functions that decode other formats)."""
+    stages = sorted((PKG / "pipeline" / "stages").glob("*.py"))
+    assert len(stages) >= 9
+    for f in stages:
+        top = [n for n in ast.parse(f.read_text()).body
+               if isinstance(n, (ast.Import, ast.ImportFrom))]
+        names = [a.name for n in top if isinstance(n, ast.Import) for a in n.names]
+        names += [n.module for n in top if isinstance(n, ast.ImportFrom) and n.module]
+        assert not [m for m in names if m.split(".")[0] == "PIL"], f.name
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -71,6 +91,13 @@ def test_entry_points_default_to_cuda(monkeypatch):
         TorchMatcherBackend(tiny=False)
     with pytest.raises(RuntimeError, match="CUDA"):
         OrbitRenderer()
+    from labelany3d_tpu_torch.pipeline.config import PipelineConfig
+    from labelany3d_tpu_torch.pipeline.stages import BicubicEnhance, BoxStage
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BicubicEnhance()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BoxStage(PipelineConfig(), None, "", "val", instance_provider=object())
     assert TorchMatcherBackend(device="cpu").cfg.dec_depth == 2  # tiny, as in JAX
     assert TorchMatcherBackend(tiny=False, device="cpu").cfg.dec_depth == 12
     assert resolve_device("cpu").type == "cpu"

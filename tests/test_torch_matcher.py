@@ -193,5 +193,14 @@ def test_matcher_backend_matches_jax():
             for a, b in zip(g, wnt):
                 np.testing.assert_array_equal(a, np.asarray(b))
     assert tb.forwards == len(calls)
-    with pytest.raises(NotImplementedError, match="resize"):
-        tb.match(refs[0][:16], views[0])
+    # A reference crop of another size is resized to the views' size as the
+    # JAX backend resizes it (8-bit, Pillow's bicubic; within one level).
+    crop = refs[0][:16]
+    prep = tb._prep_ref(crop, h, w)
+    np.testing.assert_allclose(prep, jb._prep_ref(crop, h, w), atol=1 / 255 + 1e-6)
+    got = tb.match(crop, views[0])
+    for a, b in zip(got, tb.match(np.concatenate([prep, crop[:1, :1, 3:].repeat(h, 0)
+                                                  .repeat(w, 1)], -1), views[0])):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(got, jb.match(crop, views[0])):
+        np.testing.assert_array_equal(a, np.asarray(b))

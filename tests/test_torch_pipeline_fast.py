@@ -15,10 +15,12 @@ checks the CLI end to end on the CPU.
 import json
 
 import numpy as np
+import pytest
 import torch
 from PIL import Image
 
 from labelany3d_tpu.data.rle import rle_encode
+from labelany3d_tpu.export.hungarian import hungarian_match as jhungarian_match
 from labelany3d_tpu.models.fakes import FakeScene
 from labelany3d_tpu.pipeline.backends import FakeDepthBackend as JFakeDepthBackend
 from labelany3d_tpu.pipeline.config import PipelineConfig as JPipelineConfig
@@ -26,6 +28,7 @@ from labelany3d_tpu.pipeline.stages import CropStage as JCropStage
 from labelany3d_tpu.pipeline.stages import ExportStage as JExportStage
 from labelany3d_tpu.pipeline.stages.common import ArrayImageSource as JArraySource
 from labelany3d_tpu.pipeline.stages.fused import FusedFastStage as JFusedFastStage
+from labelany3d_tpu_torch.export.hungarian import hungarian_match
 from labelany3d_tpu_torch.pipeline import runner
 from labelany3d_tpu_torch.pipeline.backends import FakeDepthBackend
 from labelany3d_tpu_torch.pipeline.config import PipelineConfig
@@ -158,3 +161,19 @@ def test_runner_main_tiny_preset(tmp_path):
     coco = _read(out / "COCO3D_val.json")
     assert coco["info"]["id"] == 22
     assert len(list((sd / "crops").glob("*_reproj.png"))) == 2
+
+
+def test_hungarian_match_scores_non_finite_iou_zero():
+    """F7: a 2D box projected from corners behind the camera has non-finite
+    edges. The JAX `hungarian_match` raises (scipy refuses NaN); the port
+    scores such a pair 0 and matches the rest as JAX does without it."""
+    b0 = np.array([[0, 0, 10, 10], [np.nan, 0, 5, 5], [40, 40, 60, 70]], np.float32)
+    b1 = np.array([[1, 1, 10, 10], [20, 20, 30, 30], [42, 40, 60, 66]], np.float32)
+    with pytest.raises(ValueError):
+        jhungarian_match(b0, b1)
+    got = hungarian_match(b0, b1)
+    assert [(i, j) for i, j, _ in got] == [(0, 0), (1, 1), (2, 2)]
+    assert got[1][2] == 0.0
+    finite = [0, 2]
+    want = jhungarian_match(b0[finite], b1[finite])
+    np.testing.assert_allclose([got[k][2] for k in finite], [w[2] for w in want], rtol=1e-6)

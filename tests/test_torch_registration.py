@@ -24,6 +24,7 @@ from labelany3d_tpu.data import meshio as jmeshio
 from labelany3d_tpu.geometry.align import median_ratio_scale as jmedian_ratio_scale
 from labelany3d_tpu.geometry.crops import crop_to_image_coords as jcrop_to_image_coords
 from labelany3d_tpu.geometry.crops import restore_mask_from_crop as jrestore_mask_from_crop
+from labelany3d_tpu.geometry.pnp import solve_pnp_dlt as jsolve_pnp_dlt
 from labelany3d_tpu.geometry.pnp import solve_pnp_ransac as jsolve_pnp_ransac
 from labelany3d_tpu.geometry.transforms import so3_exp as jso3_exp
 from labelany3d_tpu.ops.rasterize import rasterize_mesh as jrasterize_mesh
@@ -32,7 +33,7 @@ from labelany3d_tpu.registration.renderer import OrbitRenderer as JOrbitRenderer
 from labelany3d_tpu_torch.data import meshio
 from labelany3d_tpu_torch.geometry.align import median_ratio_scale
 from labelany3d_tpu_torch.geometry.crops import crop_to_image_coords, restore_mask_from_crop
-from labelany3d_tpu_torch.geometry.pnp import solve_pnp_ransac
+from labelany3d_tpu_torch.geometry.pnp import solve_pnp_dlt, solve_pnp_ransac
 from labelany3d_tpu_torch.geometry.transforms import so3_exp
 from labelany3d_tpu_torch.ops.rasterize import rasterize_mesh
 from labelany3d_tpu_torch.registration import process
@@ -144,6 +145,31 @@ def test_pnp_ransac_reports_too_few_points():
     res = solve_pnp_ransac(torch.from_numpy(obj), torch.from_numpy(img), torch.from_numpy(K),
                            torch.from_numpy(valid), generator=torch.Generator().manual_seed(0))
     assert not bool(res.ok[0])
+
+
+def test_pnp_zero_focal_is_non_finite_like_jax():
+    """F9: a zero focal makes K^-1 infinite (`inv_ex`, as `jnp.linalg.inv`).
+    The DLT then has no pose: NaN where the JAX result is NaN, without
+    raising, and the other batch element as JAX's; RANSAC reports not ok
+    (as the JAX RANSAC does on a zero focal)."""
+    rng = np.random.default_rng(3)
+    obj = rng.uniform(-1, 1, size=(2, 40, 3)).astype(np.float32)
+    img = rng.uniform(0, 100, size=(2, 40, 2)).astype(np.float32)
+    K = np.array([[[0, 0, 50], [0, 0, 40], [0, 0, 1]],
+                  [[80, 0, 50], [0, 80, 40], [0, 0, 1]]], np.float32)
+    want_R, want_t = (np.asarray(a) for a in jsolve_pnp_dlt(*map(jnp.asarray, (obj, img, K))))
+    got_R, got_t = (a.numpy() for a in solve_pnp_dlt(*map(torch.from_numpy, (obj, img, K))))
+    np.testing.assert_array_equal(np.isfinite(got_R), np.isfinite(want_R))
+    np.testing.assert_array_equal(np.isfinite(got_t), np.isfinite(want_t))
+    assert not np.isfinite(want_R[0]).any() and np.isfinite(want_R[1]).all()
+    np.testing.assert_allclose(got_R[1], want_R[1], atol=POSE_TOL)
+    np.testing.assert_allclose(got_t[1], want_t[1], atol=POSE_TOL)
+
+    got = solve_pnp_ransac(torch.from_numpy(obj[:1]), torch.from_numpy(img[:1]),
+                           torch.from_numpy(K[0]), torch.ones(1, 40, dtype=torch.bool),
+                           generator=torch.Generator().manual_seed(1))
+    assert not bool(got.ok[0]) and int(got.inliers.sum()) == 0
+    assert not torch.isfinite(got.rotation).any()
 
 
 def test_so3_exp_matches_jax():

@@ -9,6 +9,17 @@ import torch
 from labelany3d_tpu_torch.geometry.align import RansacDraws
 
 
+def interpret_yaw_minarea(monkeypatch) -> None:
+    """Run the JAX package's Pallas yaw kernel in interpret mode (the CPU has
+    no TPU), as its own tests do."""
+    import labelany3d_tpu.ops.boxfit_pallas as jbp
+
+    orig = jbp.yaw_minarea_pallas
+    monkeypatch.setattr(jbp, "yaw_minarea_pallas",
+                        lambda p, v, num_angles=512, interpret=False:
+                        orig(p, v, num_angles=num_angles, interpret=True))
+
+
 def jax_ransac_draws(key, batch: int, n: int, num_trials=64, samples_per_trial=64,
                      max_points=16384) -> RansacDraws:
     """Draws of `labelany3d_tpu.pipeline.labeling.depth_fusion(..., key)`."""
@@ -30,6 +41,18 @@ def jax_sample_draws(key, eff_masks: np.ndarray, num_samples: int) -> torch.Tens
         out.append(np.asarray(jax.random.randint(
             k, (m.shape[0], num_samples), 0, jnp.maximum(n_valid, 1)[:, None])))
     return torch.from_numpy(np.stack(out)).long()
+
+
+def jax_box_stage_draws(seed: int, batches: list[np.ndarray], num_samples: int) -> list:
+    """Draws of the JAX `BoxStage` (key `seed + 7`, split once per batch it
+    labels), one (B, I, S) tensor per batch; `batches` holds each batch's
+    (B, I, H, W) effective masks (instance masks where the depth is valid)."""
+    key = jax.random.PRNGKey(seed + 7)
+    out = []
+    for eff in batches:
+        key, sub = jax.random.split(key)
+        out.append(jax_sample_draws(sub, eff, num_samples))
+    return out
 
 
 def depth_ok(depth: np.ndarray, max_depth_valid=9000.0) -> np.ndarray:
