@@ -29,7 +29,16 @@ weights from a seed:
   * the `all` route (depth -> enhance -> crops -> completion -> elevation ->
     reconstruction -> layout -> export) over the registration chain's 8
     images, at the shipping defaults: 4x bicubic enhance, crops cut from the
-    2048x2048 enhanced images, passthrough completion, 0-degree elevation.
+    2048x2048 enhanced images, passthrough completion, 0-degree elevation;
+  * TRELLIS, stage 6's `obj_rec=trellis` backend: `TrellisPipeline.run` at
+    `TrellisPipelineConfig()`'s full widths on one object, timed by
+    component through the run's own spans, with weights
+    made as released torch state dicts from a seed and loaded through
+    `models/convert_trellis.py` (DINOv2 ViT-L/14 with registers -> K1; the
+    SS and SLat flow DiTs, 25 steps each with CFG as a batch of 2 -> K2;
+    decoders, surface extraction and the texture bake), the `all` route
+    with `run.obj_rec=trellis` over 2 images with 2 objects each, and a
+    reduced TRELLIS with head dim 64 on the card against the CPU.
 
 Each phase prints one line; any failure exits non-zero. Without CUDA, or
 without the rest of the repository beside it, it exits non-zero and prints
@@ -237,12 +246,16 @@ def check_flash(b: int, sq: int, sk: int, seed: int, heads: int = 12, d: int = 6
            "finite": bool(torch.isfinite(out[:, real]).all())}
     if timed:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        res["ms"] = time_cuda(lambda: att.flash_sdpa(q, k, v))
-        res["plain_ms"] = time_cuda(lambda: att.flash_sdpa_reference(q, k, v), iters=5)
-        res["library_ms"] = time_cuda(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-        # q, k, v read and the output written once (bf16); QK^T and PV.
-        res["bound_ms"], res["bound_by"] = bound(2 * b * heads * d * (2 * sq + 2 * sk),
-                                                 4 * b * heads * sq * sk * d)
+        mask = None if seg is None else (seg == 0)[:, None, None, :]
+        res["ms"] = time_cuda(lambda: att.flash_sdpa(q, k, v, seg))
+        res["plain_ms"] = time_cuda(lambda: att.flash_sdpa_reference(q, k, v, seg), iters=5)
+        res["library_ms"] = time_cuda(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        # q read and the output written once, k and v over the real keys
+        # (bf16); QK^T and PV against the real keys.
+        sk_real = sk - pad_keys
+        res["bound_ms"], res["bound_by"] = bound(2 * b * heads * d * (2 * sq + 2 * sk_real),
+                                                 4 * b * heads * sq * sk_real * d)
         res.update(against_yardsticks(res))
     return res
 
@@ -1157,7 +1170,19 @@ def kernel_checks() -> dict:
           "stage_b_1024": check_flash(4, 1024, 1024, seed=17, timed=True),
           # Stage B's rope encoder: 4 references + 4 views (match_pairs
           # buckets both to 4).
-          "rope_encoder_stage_b": check_flash(8, 1024, 1024, seed=18, heads=16, timed=True)}
+          "rope_encoder_stage_b": check_flash(8, 1024, 1024, seed=18, heads=16, timed=True),
+          # TRELLIS's flows, CFG as one batch of 2: the SS DiT over 16^3
+          # tokens, its cross-attention to the 1374 DINOv2 tokens (a ragged
+          # last key tile), the SLat torso at the largest bucket (8192 slots)
+          # with 1024 pad slots masked by segment ids, and its cross-attention.
+          "trellis_ss_self": check_flash(2, 4096, 4096, seed=41, heads=16, timed=True),
+          "trellis_ss_cross": check_flash(2, 4096, 1374, seed=42, heads=16, timed=True),
+          "trellis_slat_self": check_flash(2, 8192, 8192, seed=43, heads=16, pad_keys=1024,
+                                           timed=True),
+          "trellis_slat_cross": check_flash(2, 8192, 1374, seed=44, heads=16, timed=True),
+          # The torso shape without segment ids: what the masking costs.
+          "trellis_slat_self_unmasked": check_flash(2, 8192, 8192, seed=45, heads=16,
+                                                    timed=True)}
     for name, r in k2.items():
         _say(f"K2:{name}", **r, max_abs_tol=K2_MAX_ABS_TOL, rel_tol=K2_REL_TOL)
     bad = [n for n, r in k2.items() if not r["finite"] or r["max_abs_err"] > K2_MAX_ABS_TOL
@@ -1202,6 +1227,482 @@ def kernel_checks() -> dict:
     if bad:
         raise SystemExit(f"K4 disagrees with its plain version: {bad}")
     return {"k2": k2, "k3": k3, "k4": k4}
+
+
+# Phase 11, TRELLIS: weights in the release's torch layout, the components at
+# full width on one object, the `all` route with obj_rec=trellis, and the
+# card against the CPU at a reduced config with head dim 64.
+
+# The card (K1, K2: bf16 P before the PV product) against the CPU's plain
+# versions, relative L2, stage by stage from the same inputs and bf16
+# weights. The first card run measured at most 5.5e-4 (SLat, after 25 CFG
+# steps); one bf16 rounding is 2^-9 = 2e-3. An unmasked pad key or a lost
+# key tile moves an attention output by a few percent.
+TRELLIS_REL_TOL = 5e-3
+# The decoded Gaussians' means hold the decoder's card path (sparse convs,
+# window attention: plain PyTorch on both sides, no K1 or K2) to the CPU's.
+# The voxel positions, equal on both, dominate them: the first card run
+# measured 1.3e-6. A shifted window or a lost voxel moves them by 1e-3 or
+# more.
+TRELLIS_MEANS_TOL = 1e-4
+TRELLIS_IMAGES = 2
+TRELLIS_INSTANCES = 2
+
+
+def _dit_block_state(st, pre: str, dit, ctx: int) -> None:
+    """A ModulatedTransformerCrossBlock (`blocks.{i}.`) in the release's names."""
+    w, hd, hid = dit.width, dit.width // dit.num_heads, int(dit.width * dit.mlp_ratio)
+    st.norm(pre + "norm2.", w)
+    st.linear(pre + "self_attn.to_qkv.", w, 3 * w)
+    st.linear(pre + "self_attn.to_out.", w, w)
+    st.linear(pre + "cross_attn.to_q.", w, w)
+    st.linear(pre + "cross_attn.to_kv.", ctx, 2 * w)
+    st.linear(pre + "cross_attn.to_out.", w, w)
+    for attn, on in (("self_attn.", dit.qk_rms_norm), ("cross_attn.", dit.qk_rms_norm_cross)):
+        if on:
+            st.const(pre + attn + "q_rms_norm.gamma", 1.0, dit.num_heads, hd)
+            st.const(pre + attn + "k_rms_norm.gamma", 1.0, dit.num_heads, hd)
+    st.linear(pre + "mlp.mlp.0.", w, hid)
+    st.linear(pre + "mlp.mlp.2.", hid, w)
+    st.linear(pre + "adaLN_modulation.1.", w, 6 * w)
+
+
+def _flow_state(st, dit, ctx: int, n_in: int, n_out: int, end: int | None = None) -> None:
+    """A flow model's input and output layers (`end` wide on the model's
+    side: the DiT's width, or the SLat UNet's outer blocks'), timestep
+    embedder and DiT blocks."""
+    st.linear("input_layer.", n_in, end or dit.width)
+    st.linear("t_embedder.mlp.0.", 256, dit.width)
+    st.linear("t_embedder.mlp.2.", dit.width, dit.width)
+    st.linear("out_layer.", end or dit.width, n_out)
+    for i in range(dit.depth):
+        _dit_block_state(st, f"blocks.{i}.", dit, ctx)
+
+
+def _conv3d_state(st, pre: str, n_in: int, n_out: int, k: int = 3) -> None:
+    st.rand(pre + "weight", n_out, n_in, k, k, k)
+    st.const(pre + "bias", 0.0, n_out)
+
+
+def _spconv_state(st, pre: str, n_in: int, n_out: int, k: int = 3) -> None:
+    st.rand(pre + "conv.weight", n_out, k, k, k, n_in)  # spconv: (out, k, k, k, in)
+    st.const(pre + "conv.bias", 0.0, n_out)
+
+
+def _swin_torso_state(st, cfg) -> None:
+    w, hid = cfg.model_channels, int(cfg.model_channels * cfg.mlp_ratio)
+    st.linear("input_layer.", cfg.latent_channels, w)
+    for i in range(cfg.num_blocks):
+        st.linear(f"blocks.{i}.attn.to_qkv.", w, 3 * w)
+        st.linear(f"blocks.{i}.attn.to_out.", w, w)
+        st.linear(f"blocks.{i}.mlp.mlp.0.", w, hid)
+        st.linear(f"blocks.{i}.mlp.mlp.2.", hid, w)
+
+
+def released_trellis_states(cfg, seed: int = 40, std: float = 0.02):
+    """The six components of a `TrellisPipelineConfig` as released torch
+    state dicts (DINOv2 with registers in timm's names, then the five
+    TRELLIS models), N(0, std^2) from seeds: yields (component, state), one
+    in memory at a time."""
+    from labelany3d_tpu_torch.models.trellis.decoders import flexicubes_channels
+
+    ctx = cfg.cond_backbone.width
+    st = SyntheticState(seed, std)
+    gh, gw = cfg.cond_backbone.pos_grid
+    st.vit("", cfg.cond_backbone, n_pos=gh * gw)
+    yield "cond", st
+
+    ss = cfg.structure
+    st = SyntheticState(seed + 1, std)
+    _flow_state(st, ss.dit, ctx, ss.latent_channels * ss.patch_size ** 3,
+                ss.out_channels * ss.patch_size ** 3)
+    yield "ss", st
+
+    dec, ch = cfg.ss_dec, list(cfg.ss_dec.channels)
+    st = SyntheticState(seed + 2, std)
+    _conv3d_state(st, "input_layer.", dec.latent_channels, ch[0])
+
+    def res3d(pre, c):
+        st.norm(pre + "norm1.", c)
+        _conv3d_state(st, pre + "conv1.", c, c)
+        st.norm(pre + "norm2.", c)
+        _conv3d_state(st, pre + "conv2.", c, c)
+
+    for m in range(dec.num_res_blocks_middle):
+        res3d(f"middle_block.{m}.", ch[0])
+    idx = 0
+    for i, c in enumerate(ch):
+        for _ in range(dec.num_res_blocks):
+            res3d(f"blocks.{idx}.", c)
+            idx += 1
+        if i < len(ch) - 1:
+            _conv3d_state(st, f"blocks.{idx}.conv.", c, ch[i + 1] * 8)
+            idx += 1
+    st.norm("out_layer.0.", ch[-1])
+    _conv3d_state(st, "out_layer.2.", ch[-1], dec.out_channels)
+    yield "ss_dec", st
+
+    sl, dit = cfg.slat, cfg.slat.dit
+    io = list(sl.io_block_channels)
+    st = SyntheticState(seed + 3, std)
+    _flow_state(st, dit, ctx, sl.latent_channels, sl.out_channels, end=io[0])
+
+    def sres(pre, c_in, c_out):
+        st.norm(pre + "norm1.", c_in)
+        _spconv_state(st, pre + "conv1.", c_in, c_out)
+        _spconv_state(st, pre + "conv2.", c_out, c_out)
+        st.linear(pre + "emb_layers.1.", dit.width, 2 * c_out)
+        if c_in != c_out:
+            st.linear(pre + "skip_connection.", c_in, c_out)
+
+    j = 0
+    for chs, nxt in zip(io, io[1:] + [dit.width]):
+        for _ in range(sl.num_io_res_blocks - 1):
+            sres(f"input_blocks.{j}.", chs, chs)
+            j += 1
+        sres(f"input_blocks.{j}.", chs, nxt)
+        j += 1
+    j, mult = 0, 2 if sl.use_skip_connection else 1
+    for chs, prev in zip(reversed(io), [dit.width] + list(reversed(io[1:]))):
+        sres(f"out_blocks.{j}.", prev * mult, chs)
+        j += 1
+        for _ in range(sl.num_io_res_blocks - 1):
+            sres(f"out_blocks.{j}.", chs * mult, chs)
+            j += 1
+    yield "slat", st
+
+    st = SyntheticState(seed + 4, std)
+    _swin_torso_state(st, cfg.dec_gs)
+    st.linear("out_layer.", cfg.dec_gs.model_channels, cfg.gs_rep.num_gaussians * 14)
+    yield "gs", st
+
+    dm, c = cfg.dec_mesh, cfg.dec_mesh.model_channels
+    st = SyntheticState(seed + 5, std)
+    _swin_torso_state(st, dm)
+    for i, (c_in, c_out) in enumerate(((c, c // 4), (c // 4, c // 8))):
+        pre = f"upsample.{i}."
+        st.norm(pre + "act_layers.0.", c_in)
+        _spconv_state(st, pre + "out_layers.0.", c_in, c_out)
+        st.norm(pre + "out_layers.1.", c_out)
+        _spconv_state(st, pre + "out_layers.3.", c_out, c_out)
+        _spconv_state(st, pre + "skip_connection.", c_in, c_out, k=1)
+    st.linear("out_layer.", c // 8, flexicubes_channels(True))
+    yield "mesh", st
+
+
+def trellis_weights(cfg, seed: int = 40) -> tuple[dict, int]:
+    """Flax-layout trees of the six components from released-layout state
+    dicts (`released_trellis_states`) through `models/convert_trellis.py`,
+    and the parameter count."""
+    from labelany3d_tpu_torch.models import convert_trellis as ct
+
+    conv = {"cond": lambda s: ct.convert_trellis_cond(s, cfg.cond_backbone),
+            "ss": lambda s: ct.convert_trellis_ss_flow(s, cfg.structure),
+            "ss_dec": lambda s: ct.convert_trellis_ss_decoder(s, cfg.ss_dec),
+            "slat": lambda s: ct.convert_trellis_slat_flow(s, cfg.slat),
+            "gs": lambda s: ct.convert_trellis_slat_gs(s, cfg.dec_gs),
+            "mesh": lambda s: ct.convert_trellis_slat_mesh(s, cfg.dec_mesh)}
+    params, n = {}, 0
+    for name, state in released_trellis_states(cfg, seed):
+        n += sum(v.size for v in state.values())
+        params[name] = conv[name](state)
+        del state
+    return params, n
+
+
+def trellis_launches(cfg) -> tuple[int, int]:
+    """K1 and K2 launches of one object: the conditioner's blocks; each flow
+    step's self- and cross-attention in every block (CFG is one batch)."""
+    return cfg.cond_backbone.depth, 2 * (cfg.ss_sampler.steps * cfg.structure.dit.depth
+                                         + cfg.slat_sampler.steps * cfg.slat.dit.depth)
+
+
+def trellis_crop(seed: int = 0, size: int = 512):
+    """A crop as the crop stage writes it: an RGBA ellipse on transparency."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size]
+    inside = ((yy - size / 2) / (0.35 * size)) ** 2 + ((xx - size / 2) / (0.25 * size)) ** 2 < 1
+    img = np.zeros((size, size, 4), np.uint8)
+    img[..., :3] = rng.integers(0, 256, (size, size, 3))
+    img[..., 3] = inside * 255
+    return img
+
+
+def run_trellis_components(tmp: str, weights: dict) -> dict:
+    """Phase 11(a): `TrellisPipeline.run` at `TrellisPipelineConfig()`
+    (weights held in bf16) on one crop, its components timed by the run's
+    own spans: a cold run (launch counts read here), a warm run (timed), a
+    device-only traced run (the whole run's device time); then the GLB
+    written and read back."""
+    import numpy as np
+    import torch
+
+    from labelany3d_tpu_torch.data.meshio import load_glb, save_glb
+    from labelany3d_tpu_torch.models.trellis import TrellisPipeline
+    from labelany3d_tpu_torch.utils.profiling import StageTimer
+
+    counters, plains = kernel_counters()
+    tp = TrellisPipeline(params=weights, params_dtype=torch.bfloat16, device="cuda")
+    c = tp.cfg
+    rgba = trellis_crop()
+
+    def timed_run():
+        timer = StageTimer()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tp.run(rgba, seed=1, timer=timer)
+        torch.cuda.synchronize()
+        secs = {k: s.total_seconds for k, s in timer.stats.items()}
+        secs["run"] = time.perf_counter() - t0
+        return out, secs
+
+    t0 = time.perf_counter()
+    tp.init_params()
+    res = {"init_s": time.perf_counter() - t0}
+    for k in (*counters.values(), *plains.values()):
+        k.reset()
+    torch.cuda.reset_peak_memory_stats()
+    _, res["cold_s"] = timed_run()
+    res["launches"] = {k: v.count for k, v in counters.items()}
+    res["plain_calls"] = {k: v.count for k, v in plains.items()}
+    out, warm = timed_run()
+    res["warm_s"] = warm
+    res["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile_pass(lambda: tp.run(rgba, seed=1), host=False)
+    res["profile"] = prof
+    res["idle_share"] = (1.0 - prof["device_ms"] / (warm["run"] * 1e3) if prof["device_ms"] > 0
+                         else "not measured")
+    mesh, valid = out["mesh"], out["valid"]
+    res["voxels"] = int(valid.sum())
+    res["buckets"] = tp.slat_buckets(out["coords"], valid)
+    res["fine_voxels"] = int(out["mesh_features"][2].sum())
+    res["faces"], res["vertices"] = len(mesh.faces), len(mesh.vertices)
+    res["texture_hw"] = list(mesh.texture.shape[:2]) if mesh.texture is not None else None
+    want = trellis_launches(c)
+    res["want"] = {"k1": want[0], "k2": want[1], "k3": 0, "k4": 0}
+
+    path = os.path.join(tmp, "trellis_object.glb")
+    t0 = time.perf_counter()
+    save_glb(path, mesh)
+    back = load_glb(path)
+    res["glb"] = {"s": time.perf_counter() - t0, "mb": os.path.getsize(path) / 1e6}
+    tex = back.texture
+    th, tw = tex.shape[:2]
+    ui = np.clip(back.uv[:, 0] * (tw - 1), 0, tw - 1).astype(np.int64)
+    vi = np.clip(back.uv[:, 1] * (th - 1), 0, th - 1).astype(np.int64)
+    res["glb"]["ok"] = bool(
+        np.array_equal(back.faces, mesh.faces) and np.array_equal(tex, mesh.texture)
+        and np.array_equal(back.vertices, mesh.vertices)
+        and np.allclose(back.colors, tex[vi, ui] / 255.0, atol=1e-6))
+    res["ok"] = (res["launches"] == res["want"] and not any(res["plain_calls"].values())
+                 and res["voxels"] > 0 and res["faces"] > 0 and res["glb"]["ok"])
+    del tp
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_trellis_route(tmp: str) -> dict:
+    """Phase 11(b): `run_stages("all", ...)` with run.obj_rec=trellis over
+    2 synthetic images with 2 objects each, reconstruction from the
+    registry's `make_reconstruction("trellis")` at `TrellisPipelineConfig()`
+    with its default (random, zero-gated) initialisation, the other stages'
+    backends as phase 10's. The meshes are then empty, as in the JAX
+    package; the layout stage skips them, so no scene has boxes."""
+    import torch
+
+    from labelany3d_tpu_torch.data.meshio import load_glb
+    from labelany3d_tpu_torch.pipeline.backends import TorchMatcherBackend, default_registry
+    from labelany3d_tpu_torch.pipeline.config import PipelineConfig
+    from labelany3d_tpu_torch.pipeline.runner import run_stages
+    from labelany3d_tpu_torch.pipeline.scene import SceneDir, scene_dir_name
+    from labelany3d_tpu_torch.pipeline.stages.common import ArrayImageSource
+    from labelany3d_tpu_torch.utils.profiling import StageTimer
+
+    cfg = PipelineConfig(bbox_method="minarea_pallas")
+    loader = SyntheticLoader(TRELLIS_IMAGES, IMAGE_HW, seed=11, min_inst=TRELLIS_INSTANCES,
+                             max_inst=TRELLIS_INSTANCES)
+    backend = default_registry().get("depth", preset="large", pin_hw=cfg.bucket_sizes()[0],
+                                     device="cuda", seed=cfg.seed)
+    matcher = TorchMatcherBackend(tiny=False, seed=cfg.seed, device="cuda")
+    counters, plains = kernel_counters()
+    for k in (*counters.values(), *plains.values()):
+        k.reset()
+    out_dir, stages, timer = os.path.join(tmp, "trellis_all"), {}, StageTimer()
+    t0 = time.perf_counter()
+    run_stages("all", cfg, loader, ArrayImageSource(loader.pixels), out_dir, "val", 0,
+               TRELLIS_IMAGES, backend=backend, matcher=matcher,
+               run_options={"obj_rec": "trellis"}, device="cuda", timer=timer, stages=stages)
+    torch.cuda.synchronize()
+    res = {"s": time.perf_counter() - t0,
+           "stage_s": {k: timer.stats[k].total_seconds for k in ALL_STAGES},
+           "launches": {k: v.count for k, v in counters.items()},
+           "plain_calls": {k: v.count for k, v in plains.items()},
+           "failures": list(stages["layout"].failures), "forwards": matcher.forwards}
+    glbs, with_boxes, depths = [], set(), 0
+    for info in loader.images:
+        name = scene_dir_name(info["file_name"])
+        sd = SceneDir(os.path.join(out_dir, "val", name))
+        glbs += [load_glb(sd.object_mesh(i)) for i in sd.list_crop_ids()
+                 if sd.object_mesh(i).exists()]
+        depths += sd.depth_map.exists()
+        if sd.bbox3d.exists() and sd.read_bbox3d():
+            with_boxes.add(name)
+    res["glbs"], res["empty_glbs"] = len(glbs), sum(m.is_empty for m in glbs)
+    with open(os.path.join(out_dir, "COCO3D_val.json")) as f:
+        listed = {os.path.basename(im["file_path"]).rsplit(".", 1)[0]
+                  for im in json.load(f)["images"]}
+    res["scenes_with_boxes"], res["coco3d_images"] = sorted(with_boxes), sorted(listed)
+    tc = stages["reconstruction"].backend.cfg
+    k1, k2 = trellis_launches(tc)
+    n = res["glbs"]
+    res["want"] = {"k1": -(-TRELLIS_IMAGES // cfg.batch_size)
+                   * (backend.moge_cfg.backbone.depth + backend.dp_cfg.backbone.depth) + k1 * n,
+                   "k2": k2 * n, "k3": 0, "k4": 0}
+    res["ok"] = (res["launches"] == res["want"] and not any(res["plain_calls"].values())
+                 and not res["failures"] and n == TRELLIS_IMAGES * TRELLIS_INSTANCES
+                 and depths == TRELLIS_IMAGES and with_boxes == listed)
+    del stages, backend, matcher
+    torch.cuda.empty_cache()
+    return res
+
+
+def trellis_check_config():
+    """A reduced TRELLIS with head dim 64 everywhere, so K1 and K2 take it:
+    a 2-block ViT of width 128 (2 heads) at 112 px, flows of width 128 (2
+    heads, 2 blocks) over an 8^3 latent and 512 voxels of a 32^3 grid,
+    decoders of width 128, the release's samplers (25 steps each)."""
+    from labelany3d_tpu_torch.models.trellis import (
+        DiTConfig,
+        GaussianRepConfig,
+        SLatConfig,
+        SLatDecoderConfig,
+        SparseStructureConfig,
+        SSDecoderConfig,
+        TrellisPipelineConfig,
+    )
+    from labelany3d_tpu_torch.models.vit import ViTConfig
+
+    dit = DiTConfig(width=128, depth=2, num_heads=2, cond_dim=128, qk_rms_norm=True)
+    dec = SLatDecoderConfig(resolution=32, model_channels=128, num_blocks=2, num_heads=2)
+    return TrellisPipelineConfig(
+        cond_backbone=ViTConfig(width=128, depth=2, num_heads=2, num_register_tokens=4,
+                                pos_grid=(8, 8)),
+        cond_size=112,
+        structure=SparseStructureConfig(latent_res=8, grid_size=32, dit=dit),
+        ss_dec=SSDecoderConfig(channels=(64, 32, 16), num_res_blocks=1, num_res_blocks_middle=1),
+        slat=SLatConfig(resolution=32, io_block_channels=(32,), dit=dit),
+        dec_gs=dec, dec_mesh=dec, gs_rep=GaussianRepConfig(num_gaussians=8), max_voxels=512)
+
+
+def trellis_card_vs_cpu(seed: int = 50) -> dict:
+    """Phase 11(c): the reduced config with seeded released-layout weights
+    (bf16 held) on the card, where K1 and K2 run, and on the CPU, where the
+    plain versions run; each stage from the CPU's inputs to it and the same
+    draws: conditioning tokens, SS latent, SLat (valid rows: invalid ones
+    are zero) and the Gaussians' means (valid Gaussians). Relative L2;
+    K1 and K2 launch as often as `trellis_launches` says."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from labelany3d_tpu_torch.models.trellis import TrellisPipeline
+
+    cfg = trellis_check_config()
+    weights, _ = trellis_weights(cfg, seed)
+    pipes = {d: TrellisPipeline(cfg, params=copy.deepcopy(weights), params_dtype=torch.bfloat16,
+                                device=d) for d in ("cpu", "cuda")}
+    counters, plains = kernel_counters()
+    for k in (*counters.values(), *plains.values()):
+        k.reset()
+    rng = np.random.default_rng(seed)
+    ss_noise = rng.standard_normal((1, cfg.structure.latent_res ** 3, 8)).astype(np.float32)
+    rgba = trellis_crop(seed, 256)
+
+    def on(dev, t):
+        return t.to(dev) if isinstance(t, torch.Tensor) else t
+
+    out = {d: {} for d in pipes}
+    cpu = pipes["cpu"]
+    out["cpu"]["cond"] = cpu.get_cond(cpu.preprocess(rgba))[0]
+    for d, p in pipes.items():
+        if d == "cuda":
+            out[d]["cond"] = p.get_cond(p.preprocess(rgba))[0]
+        cond = on(d, out["cpu"]["cond"])
+        out[d]["latent"] = p.ss_latent(cond, torch.zeros_like(cond), on(d, torch.from_numpy(ss_noise)))
+    coords, valid = cpu.sample_sparse_structure(out["cpu"]["cond"],
+                                                torch.zeros_like(out["cpu"]["cond"]),
+                                                torch.from_numpy(ss_noise))
+    n_fine, torso = cpu.slat_buckets(coords, valid)
+    slat_noise = torch.from_numpy(rng.standard_normal((1, n_fine, 8)).astype(np.float32))
+    for d, p in pipes.items():
+        cond = on(d, out["cpu"]["cond"])
+        out[d]["slat"] = p.sample_slat(on(d, coords), on(d, valid), cond, torch.zeros_like(cond),
+                                       on(d, slat_noise))
+    for d, p in pipes.items():
+        gs, _ = p.decode(on(d, out["cpu"]["slat"]), on(d, coords), on(d, valid))
+        out[d]["means"] = gs.means[gs.valid]
+    v = valid[0]
+    res = {}
+    for name in ("cond", "latent", "slat", "means"):
+        a, b = out["cuda"][name].float().cpu(), out["cpu"][name].float()
+        if name == "slat":
+            a, b = a[0][v], b[0][v]
+        res[name] = float((a - b).norm() / b.norm())
+    res["launches"] = {k: c.count for k, c in counters.items()}
+    k1, k2 = trellis_launches(cfg)
+    res["want"] = {"k1": k1, "k2": k2, "k3": 0, "k4": 0}
+    res["voxels"], res["buckets"] = int(v.sum()), (n_fine, torso)
+    res["ok"] = (all(res[n] <= TRELLIS_REL_TOL for n in ("cond", "latent", "slat"))
+                 and res["means"] <= TRELLIS_MEANS_TOL and res["launches"] == res["want"]
+                 and res["voxels"] > 0)
+    return res
+
+
+def run_trellis(tmp: str) -> dict:
+    """Phase 11: weights, (a) the components, (b) the route, (c) card
+    against CPU; prints each part's lines. Returns the three results."""
+    from labelany3d_tpu_torch.models.trellis import TrellisPipelineConfig
+
+    t0 = time.perf_counter()
+    weights, n_params = trellis_weights(TrellisPipelineConfig())
+    _say("trellis:weights", s=time.perf_counter() - t0, parameters=n_params)
+    comp = run_trellis_components(tmp, weights)
+    del weights
+    p = comp["profile"]
+    _say("trellis:components", init_s=comp["init_s"], cold_s=json.dumps(comp["cold_s"]),
+         warm_s=json.dumps(comp["warm_s"]), voxels=comp["voxels"],
+         buckets=json.dumps(comp["buckets"]), fine_voxels=comp["fine_voxels"],
+         faces=comp["faces"], vertices=comp["vertices"], texture_hw=json.dumps(comp["texture_hw"]),
+         launches=json.dumps(comp["launches"]), want=json.dumps(comp["want"]),
+         plain_calls=json.dumps(comp["plain_calls"]), glb=json.dumps(comp["glb"]),
+         max_memory_gb=comp["max_memory_gb"])
+    _say("trellis:profile", device_ms=p["device_ms"], traced_wall_ms=p["wall_ms"],
+         k1_device_ms=p["k1_ms"], k2_device_ms=p["k2_ms"], k1_device_events=p["k1_events"],
+         k2_device_events=p["k2_events"], idle_share_of_warm_run=comp["idle_share"],
+         top_device=json.dumps(p["top_device"]))
+    if not comp["ok"]:
+        raise SystemExit("trellis components: launches, plain calls, voxels, faces or the GLB "
+                         "round trip are not as required (see trellis:components)")
+    route = run_trellis_route(tmp)
+    _say("trellis:route", s=route["s"], stage_s=json.dumps(route["stage_s"]),
+         launches=json.dumps(route["launches"]), want=json.dumps(route["want"]),
+         plain_calls=json.dumps(route["plain_calls"]), failures=json.dumps(route["failures"]),
+         glbs=route["glbs"], empty_glbs=route["empty_glbs"], forwards=route["forwards"],
+         scenes_with_boxes=json.dumps(route["scenes_with_boxes"]),
+         coco3d_images=json.dumps(route["coco3d_images"]))
+    if not route["ok"]:
+        raise SystemExit("trellis route: launches, plain calls, failures, GLBs or COCO3D are "
+                         "not as required (see trellis:route)")
+    check = trellis_card_vs_cpu()
+    _say("trellis:card_vs_cpu", **{k: json.dumps(v) if isinstance(v, (dict, tuple)) else v
+                                   for k, v in check.items()}, rel_tol=TRELLIS_REL_TOL,
+         means_tol=TRELLIS_MEANS_TOL)
+    if not check["ok"]:
+        raise SystemExit("trellis: the card disagrees with the CPU (see trellis:card_vs_cpu)")
+    return {"components": comp, "route": route, "card_vs_cpu": check}
 
 
 def module_version(name: str) -> str:
@@ -1270,7 +1771,10 @@ def main() -> int:
               "depth_pro": dict(b=40, n_pad=384, n_real=325, heads=16, d=64),
               "matcher": dict(b=36, n_pad=1408, n_real=1297, heads=16, d=64),
               "depth_pro35_patch": dict(b=280, n_pad=640, n_real=577, heads=16, d=64),
-              "depth_pro35_image": dict(b=8, n_pad=640, n_real=577, heads=16, d=64)}
+              "depth_pro35_image": dict(b=8, n_pad=640, n_real=577, heads=16, d=64),
+              # TRELLIS's DINOv2 ViT-L/14 with 4 registers at 518^2: 1 + 4 +
+              # 37^2 tokens, one object at a time.
+              "trellis_cond": dict(b=1, n_pad=1408, n_real=1374, heads=16, d=64)}
     k1 = {}
     for i, (name, shape) in enumerate(shapes.items()):
         k1[name] = check_attention(shape, seed=i)
@@ -1350,7 +1854,8 @@ def main() -> int:
 
         # 7. The registration chain: depth -> crops -> reconstruction ->
         # layout -> export at the large preset, full-width matcher, K4 box fit.
-        reg = run_registration({}, tmp)
+        # Its traced pass records the device only, as phase 10's does.
+        reg = run_registration({}, tmp, trace_host=False)
         _say("registration:cold", s=reg["cold_s"], forwards=reg["forwards"],
              launches=json.dumps(reg["launches"]), want=json.dumps(reg["want"]),
              plain_calls=json.dumps(reg["plain_calls"]), failures=json.dumps(reg["failures"]),
@@ -1442,6 +1947,12 @@ def main() -> int:
         if not allr["ok"]:
             raise SystemExit("all route: launches, plain calls, failures, enhanced images, "
                              "crops or scene artifacts are not as required (see all:cold)")
+        torch.cuda.empty_cache()
+
+        # 11. TRELLIS, stage 6's obj_rec=trellis: the components at full
+        # width on one object, the all route, the card against the CPU.
+        trel = run_trellis(tmp)
+        tcomp, troute = trel["components"], trel["route"]
 
     def row(name, source, replaces, launches, r, max_abs_err, **extra):
         return {"name": name, "route": "cuda", "source": f"labelany3d_tpu_torch/csrc/{source}",
@@ -1464,22 +1975,28 @@ def main() -> int:
             launches_reference_chain=ref["launches"]["k1"],
             launches_boxes_route=box["launches"]["k1"],
             launches_all_route=allr["launches"]["k1"],
+            launches_trellis_object=tcomp["launches"]["k1"],
+            launches_trellis_route=troute["launches"]["k1"],
             shape="MoGe B=8 Npad=1408 n_real=1297 H=16 d=64", design=design,
             ratio_to_library=k1["moge"]["ratio_to_library"],
             share_of_bound=k1["moge"]["share_of_bound"], sass=sass["k1"],
             **{name: {k: k1[name][k] for k in timed}
                for name in ("depth_pro", "matcher", "depth_pro35_patch",
-                            "depth_pro35_image")}),
+                            "depth_pro35_image", "trellis_cond")}),
         row("flash_attention", "flash_attention.cu", "labelany3d_tpu/ops/attention.py:42",
             reg["launches"]["k2"], k2["path"], max(r["max_abs_err"] for r in k2.values()),
             launches_reference_chain=ref["launches"]["k2"],
             launches_all_route=allr["launches"]["k2"],
+            launches_trellis_object=tcomp["launches"]["k2"],
+            launches_trellis_route=troute["launches"]["k2"],
             shape="q, k, v (32, 1296, 12, 64) bf16", design=design,
             ratio_to_library=k2["path"]["ratio_to_library"],
             share_of_bound=k2["path"]["share_of_bound"], sass=sass["k2"],
             **{name: {k: k2[name][k] for k in timed}
                for name in ("rope_encoder", "rope_encoder_stage_b", "decoder_1024",
-                            "stage_b_1024")}),
+                            "stage_b_1024", "trellis_ss_self", "trellis_ss_cross",
+                            "trellis_slat_self", "trellis_slat_cross",
+                            "trellis_slat_self_unmasked")}),
         row("nn_argmax", "nn_argmax.cu", "labelany3d_tpu/ops/reciprocal_nn.py:29",
             reg["launches"]["k3"], k3["path_bf16"], max(r["max_abs_err"] for r in k3.values()),
             launches_reference_chain=ref["launches"]["k3"],

@@ -1,16 +1,18 @@
 """Minimal GLB (binary glTF 2.0) and PLY mesh IO, and surface sampling.
 
-A copy of the vertex-coloured subset of `labelany3d_tpu/data/meshio.py`:
+A copy of `labelany3d_tpu/data/meshio.py`:
 
-  * GLB read: POSITION + indices (+ COLOR_0) of every mesh primitive, node
-    transforms applied;
-  * GLB write: one triangle mesh with optional vertex colours;
+  * GLB read: POSITION + indices (+ COLOR_0 / TEXCOORD_0 and the material's
+    baseColor texture) of every mesh primitive, node transforms applied; a
+    textured primitive without COLOR_0 gets vertex colours sampled from its
+    own texture, so UV-unaware consumers (the registration renderer) keep
+    its appearance;
+  * GLB write: one triangle mesh with optional vertex colours and an
+    optional UV-mapped texture (TEXCOORD_0 + an embedded PNG baseColor, as
+    TRELLIS's `to_glb` writes), the PNG through `utils/png.py`;
   * binary little-endian PLY point clouds and triangle meshes (the depth
     stage's scene PLYs), byte for byte as the JAX package writes them;
   * area-weighted surface sampling (trimesh.sample equivalent).
-
-Textured GLBs (TEXCOORD_0 + a baseColor texture, TRELLIS's output) raise
-until TRELLIS is ported.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ class Mesh:
     vertices: np.ndarray                       # (V, 3) float32
     faces: np.ndarray                          # (F, 3) int32
     colors: np.ndarray | None = None           # (V, 3|4) uint8 or float
+    uv: np.ndarray | None = None               # (V, 2) float32 in [0, 1]
+    texture: np.ndarray | None = None          # (H, W, 3) uint8 RGB atlas
     metadata: dict = field(default_factory=dict)
 
     def apply_transform(self, matrix: np.ndarray) -> "Mesh":
@@ -110,8 +114,27 @@ def _read_accessor(gltf: dict, binary: bytes, accessor_idx: int) -> np.ndarray:
     return data.copy()
 
 
+def _decode_image(data: bytes) -> np.ndarray:
+    """A GLB image's bytes -> (H, W, 3) uint8: PNG through `utils/png.py`,
+    any other format through Pillow."""
+    if data[:8] == b"\x89PNG\r\n\x1a\n":
+        from labelany3d_tpu_torch.utils.png import decode_png
+
+        img = decode_png(data)
+        img = img[..., None] if img.ndim == 2 else img
+        if img.shape[-1] in (1, 2):  # gray (+ alpha)
+            return np.repeat(img[..., :1], 3, axis=-1)
+        return np.ascontiguousarray(img[..., :3])
+    import io
+
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+
 def load_glb(path) -> Mesh:
-    """Load the merged, vertex-coloured triangle geometry of a GLB file."""
+    """Load the merged triangle geometry of a GLB file, with vertex colours,
+    and the UVs and texture when every textured primitive shares one."""
     with open(path, "rb") as f:
         raw = f.read()
     magic, _version, _length = struct.unpack_from("<III", raw, 0)
@@ -131,7 +154,22 @@ def load_glb(path) -> Mesh:
     if gltf is None:
         raise ValueError("GLB missing JSON chunk")
 
-    all_v, all_f, all_c = [], [], []
+    def material_texture(mat_idx) -> np.ndarray | None:
+        """The material's embedded baseColor image, if any."""
+        pbr = gltf.get("materials", [])[mat_idx].get("pbrMetallicRoughness", {})
+        tex_info = pbr.get("baseColorTexture")
+        if tex_info is None:
+            return None
+        img = gltf.get("images", [])[gltf.get("textures", [])[tex_info["index"]]["source"]]
+        if "bufferView" not in img:
+            return None
+        view = gltf["bufferViews"][img["bufferView"]]
+        start = view.get("byteOffset", 0)
+        return _decode_image(binary[start:start + view["byteLength"]])
+
+    # Textures are kept per material: a primitive samples only its own.
+    all_v, all_f, all_c, all_uv, all_mat = [], [], [], [], []
+    tex_cache: dict[int, np.ndarray | None] = {}
     vcount = 0
 
     def visit(node_idx: int, parent: np.ndarray):
@@ -142,19 +180,23 @@ def load_glb(path) -> Mesh:
             attrs = prim.get("attributes", {})
             if "POSITION" not in attrs:
                 continue
-            if "TEXCOORD_0" in attrs:
-                raise NotImplementedError(f"{path}: textured GLBs are not ported yet "
-                                          "(they come with TRELLIS)")
             pos = _read_accessor(gltf, binary, attrs["POSITION"]).astype(np.float64)
             pos = pos @ m[:3, :3].T + m[:3, 3]
             if "indices" in prim:
                 idx = _read_accessor(gltf, binary, prim["indices"]).reshape(-1, 3)
             else:
                 idx = np.arange(len(pos)).reshape(-1, 3)
+            uv, mat_idx = None, prim.get("material")
+            if "TEXCOORD_0" in attrs:
+                uv = _read_accessor(gltf, binary, attrs["TEXCOORD_0"])
+                if mat_idx is not None and mat_idx not in tex_cache:
+                    tex_cache[mat_idx] = material_texture(mat_idx)
             all_v.append(pos.astype(np.float32))
             all_f.append(idx.astype(np.int64) + vcount)
             all_c.append(_read_accessor(gltf, binary, attrs["COLOR_0"])
                          if "COLOR_0" in attrs else None)
+            all_uv.append(uv)
+            all_mat.append(mat_idx)
             vcount += len(pos)
         for child in node.get("children", []):
             visit(child, m)
@@ -167,13 +209,48 @@ def load_glb(path) -> Mesh:
     colors = None
     if all(c is not None for c in all_c):
         colors = np.concatenate(all_c, axis=0)
+    uv = None
+    if all(u is not None for u in all_uv):
+        uv = np.concatenate(all_uv, axis=0).astype(np.float32)
+    # The merged (uv, texture) pair only means something when every textured
+    # primitive references the same atlas.
+    tex_mats = {m for m, u in zip(all_mat, all_uv)
+                if u is not None and tex_cache.get(m) is not None}
+    texture = tex_cache[next(iter(tex_mats))] if len(tex_mats) == 1 and uv is not None else None
+
+    def sample(tex, puv):
+        th, tw = tex.shape[:2]
+        ui = np.clip((puv[:, 0] % 1.0) * (tw - 1), 0, tw - 1).astype(np.int64)
+        vi = np.clip((puv[:, 1] % 1.0) * (th - 1), 0, th - 1).astype(np.int64)
+        return tex[vi, ui].astype(np.float32) / 255.0
+
+    if colors is None and tex_mats:
+        # Per primitive: its COLOR_0, else its own texture sampled; primitives
+        # with neither are grey when several atlases exist, else no colours.
+        per_prim = []
+        for pv, pc, puv, pm in zip(all_v, all_c, all_uv, all_mat):
+            if pc is not None:
+                per_prim.append(np.asarray(pc, np.float32)[:, :3])
+            elif puv is not None and tex_cache.get(pm) is not None:
+                per_prim.append(sample(tex_cache[pm], puv))
+            elif len(tex_mats) > 1:
+                per_prim.append(np.full((len(pv), 3), 0.5, np.float32))
+            else:
+                per_prim = None
+                break
+        if per_prim is not None:
+            colors = np.concatenate(per_prim, axis=0)
     return Mesh(vertices=np.concatenate(all_v, axis=0),
-                faces=np.concatenate(all_f, axis=0).astype(np.int32), colors=colors)
+                faces=np.concatenate(all_f, axis=0).astype(np.int32), colors=colors,
+                uv=uv, texture=texture)
 
 
 def save_glb(path, mesh: Mesh) -> None:
-    """Write one triangle mesh as a GLB (positions, indices, optional
-    vertex colours), byte for byte as the JAX package writes it."""
+    """Write one triangle mesh as a GLB (positions, indices, optional vertex
+    colours, optional TEXCOORD_0 + embedded PNG baseColor texture). Without a
+    texture it is byte for byte the JAX package's file; with one, the JSON
+    and geometry are, and the PNG is this package's encoding of the same
+    pixels."""
     v = np.ascontiguousarray(mesh.vertices, np.float32)
     f = np.ascontiguousarray(mesh.faces, np.uint32).reshape(-1, 3)
     buffers = [v.tobytes(), f.tobytes()]
@@ -199,6 +276,40 @@ def save_glb(path, mesh: Mesh) -> None:
                           "count": len(c), "type": "VEC3" if c.shape[1] == 3 else "VEC4"})
         attributes["COLOR_0"] = len(accessors) - 1
 
+    gltf_extra: dict = {}
+    primitive: dict = {"attributes": attributes, "indices": 1, "mode": 4}
+    if mesh.uv is not None and mesh.texture is not None:
+        from labelany3d_tpu_torch.utils.png import encode_png
+
+        uv = np.ascontiguousarray(mesh.uv, np.float32).reshape(-1, 2)
+        if len(uv) != len(v):
+            raise ValueError(f"uv must be per-vertex: {len(uv)} uvs for {len(v)} vertices")
+        off = sum(len(b) for b in buffers)
+        buffers.append(uv.tobytes())
+        views.append({"buffer": 0, "byteOffset": off, "byteLength": len(buffers[-1]),
+                      "target": 34962})
+        accessors.append({"bufferView": len(views) - 1, "componentType": 5126,
+                          "count": len(uv), "type": "VEC2"})
+        attributes["TEXCOORD_0"] = len(accessors) - 1
+        png = encode_png(np.ascontiguousarray(mesh.texture, np.uint8))
+        off = sum(len(b) for b in buffers)
+        pad = (-off) % 4  # an image's bufferView must be 4-aligned
+        if pad:
+            buffers.append(b"\x00" * pad)
+            off += pad
+        buffers.append(png)
+        views.append({"buffer": 0, "byteOffset": off, "byteLength": len(png)})
+        gltf_extra = {
+            "images": [{"bufferView": len(views) - 1, "mimeType": "image/png"}],
+            "samplers": [{"magFilter": 9729, "minFilter": 9729, "wrapS": 10497,
+                          "wrapT": 10497}],
+            "textures": [{"sampler": 0, "source": 0}],
+            "materials": [{"pbrMetallicRoughness": {
+                "baseColorTexture": {"index": 0, "texCoord": 0},
+                "metallicFactor": 0.0, "roughnessFactor": 1.0}, "doubleSided": True}],
+        }
+        primitive["material"] = 0
+
     bin_blob = b"".join(buffers)
     bin_blob += b"\x00" * ((-len(bin_blob)) % 4)
     gltf = {
@@ -206,10 +317,11 @@ def save_glb(path, mesh: Mesh) -> None:
         "scene": 0,
         "scenes": [{"nodes": [0]}],
         "nodes": [{"mesh": 0}],
-        "meshes": [{"primitives": [{"attributes": attributes, "indices": 1, "mode": 4}]}],
+        "meshes": [{"primitives": [primitive]}],
         "buffers": [{"byteLength": len(bin_blob)}],
         "bufferViews": views,
         "accessors": accessors,
+        **gltf_extra,
     }
     js = json.dumps(gltf).encode()
     js += b" " * ((-len(js)) % 4)

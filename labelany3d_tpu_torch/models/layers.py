@@ -82,14 +82,35 @@ class ConvTranspose(nn.ConvTranspose2d):
 
 
 class LayerNorm32(nn.LayerNorm):
-    """LayerNorm computed in float32 with Flax's epsilon (1e-6)."""
+    """LayerNorm computed in float32, by default with Flax's epsilon (1e-6)."""
 
-    def __init__(self, width: int):
-        super().__init__(width, eps=1e-6)
+    def __init__(self, width: int, eps: float = 1e-6):
+        super().__init__(width, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
                             self.bias.float(), self.eps)
+
+
+def layer_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """Non-affine LayerNorm over the last axis in float32 (Flax `LayerNorm`
+    with `use_bias=False, use_scale=False, dtype=float32`)."""
+    return F.layer_norm(x.float(), x.shape[-1:], eps=eps)
+
+
+class Conv3d(nn.Conv3d):
+    """NCDHW 3D convolution at stride 1 with SAME padding for odd kernels
+    (Flax `nn.Conv` over NDHWC), computed in `dtype`; float32 runs with TF32
+    off."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, dtype: torch.dtype):
+        super().__init__(in_ch, out_ch, kernel, padding=kernel // 2)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.compute_dtype
+        with full_f32() if d == torch.float32 else contextlib.nullcontext():
+            return F.conv3d(x.to(d), self.weight.to(d), _cast(self.bias, d), 1, self.padding)
 
 
 class GroupNorm32(nn.GroupNorm):
@@ -120,15 +141,27 @@ def resize(x: torch.Tensor, size: tuple[int, int], method: str = "bilinear",
                          antialias=method == "bicubic" or (antialias and down))
 
 
-def resize_bicubic_8bit(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
-    """NCHW 8-bit values resized as Pillow's `Image.resize(size, BICUBIC)`
-    resizes an 8-bit image: Keys' kernel (a = -0.5, widened and renormalised
-    as `resize` does), the horizontal pass first, and each pass's result
-    rounded half up and clipped to [0, 255], as Pillow stores it in 8 bits
-    between the passes. Pillow sums in fixed point, so a value whose exact
-    sum lies near .5 may land one level away. Returns float32 integers."""
+def _resize_8bit(x: torch.Tensor, size: tuple[int, int], method: str) -> torch.Tensor:
+    """NCHW 8-bit values resized as Pillow resizes an 8-bit image: the
+    horizontal pass first, each pass's result rounded half up and clipped to
+    [0, 255], as Pillow stores it in 8 bits between the passes. Pillow sums
+    in fixed point, so a value whose exact sum lies near .5 may land one
+    level away. Returns float32 integers."""
     y = x.float()
     for hw in ((y.shape[-2], size[1]), tuple(size)):
         if tuple(y.shape[-2:]) != hw:
-            y = torch.floor(resize(y, hw, method="bicubic") + 0.5).clamp(0, 255)
+            y = torch.floor(resize(y, hw, method=method) + 0.5).clamp(0, 255)
     return y
+
+
+def resize_bicubic_8bit(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """Pillow's `Image.resize(size, BICUBIC)` on 8-bit values: Keys' kernel
+    (a = -0.5, widened and renormalised as `resize` does)."""
+    return _resize_8bit(x, size, "bicubic")
+
+
+def resize_bilinear_8bit(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """Pillow's `Image.resize(size, BILINEAR)` on 8-bit values: the triangle
+    filter, widened by the scale and renormalised when downsampling (PyTorch's
+    antialiased bilinear), plain bilinear when upsampling (the same weights)."""
+    return _resize_8bit(x, size, "bilinear")

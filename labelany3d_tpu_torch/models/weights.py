@@ -16,10 +16,14 @@ port model through the JAX package's name mapping, copied in
 Mapping rules (Flax leaf -> PyTorch parameter), module paths joined by '.':
   Dense `kernel` (in, out)     -> `weight` (out, in)
   Conv  `kernel` (kh, kw, I, O) -> `weight` (O, I, kh, kw)
+  Conv  `kernel` (kd, kh, kw, I, O) -> `weight` (O, I, kd, kh, kw) (Conv3d)
+  a module with `keeps_flax_kernel` (the sparse conv, whose gathers read
+  the Flax layout) -> `weight` as it is
   ConvTranspose `kernel` (kh, kw, I, O) -> `weight` (I, O, kh, kw), flipped in
                                   both spatial axes (`layers.ConvTranspose`)
-  LayerNorm / GroupNorm `scale` -> `weight`
-  any other leaf (`bias`, `gamma`, `pos_embed`, `cls_token`,
+  LayerNorm / GroupNorm / SparseGroupNorm `scale` -> `weight`
+  any other leaf (`bias`, `gamma` of LayerScale and of the per-head RMS
+  norm, `pos_embed`, `cls_token`,
   `register_tokens`, ...) keeps its name.
 Any key missing from either side, or any shape mismatch, raises.
 """
@@ -49,7 +53,7 @@ def _lecun_normal_(t: torch.Tensor, gen: torch.Generator, fan_in: int) -> None:
 def init_params_(model: nn.Module, gen: torch.Generator) -> nn.Module:
     """Random-initialise every parameter of `model` in place."""
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d)):
             w = mod.weight
             # Flax's fan-in is the input channels times the window; a
             # transposed convolution keeps its input channels in dim 0.
@@ -101,15 +105,20 @@ def flax_to_state_dict(params, model: nn.Module) -> dict[str, torch.Tensor]:
     target = model.state_dict()
     transposed = {name for name, m in model.named_modules()
                   if isinstance(m, nn.ConvTranspose2d)}
+    kept = {name for name, m in model.named_modules() if getattr(m, "keeps_flax_kernel", False)}
     out: dict[str, torch.Tensor] = {}
     for path, arr in _flatten(params):
         *mods, leaf = path
         t = torch.from_numpy(np.array(np.asarray(arr, np.float32)))
         if leaf == "kernel":
-            if t.ndim == 2:
+            if ".".join(mods) in kept:
+                pass
+            elif t.ndim == 2:
                 t = t.t()
             elif ".".join(mods) in transposed:
                 t = t.flip(0, 1).permute(2, 3, 0, 1)
+            elif t.ndim == 5:
+                t = t.permute(4, 3, 0, 1, 2)
             else:
                 t = t.permute(3, 2, 0, 1)
             leaf = "weight"

@@ -220,3 +220,106 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_sdpa_reference(q, k, v, segment_ids)
     return flash_sdpa_kernel(q, k, v, segment_ids)
+
+
+# Sparse-voxel attention patterns (TRELLIS serialized and shifted-window
+# attention). The JAX package runs both through `jax.nn.dot_product_attention`,
+# not Pallas, so they are plain PyTorch: gather into windows, masked softmax
+# attention, scatter back.
+
+_LARGE_NEGATIVE = -0.7 * torch.finfo(torch.float32).max  # XLA attention's mask value
+_WINDOW_SCORE_ELEMENTS = 1 << 26  # score elements per chunk of windows (256 MB f32)
+
+
+def _window_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """(W, S, H, D) windows, (W, S, S) bool mask [query, key] -> (W, S, H, D)
+    in `q.dtype`. Softmax in fp32 with masked scores at XLA's large negative
+    value, so a fully masked row averages V as XLA's attention does. Chunked
+    over windows so the scores never exceed `_WINDOW_SCORE_ELEMENTS`."""
+    nw, s, h, d = q.shape
+    out = torch.empty_like(q)
+    chunk = max(1, _WINDOW_SCORE_ELEMENTS // (h * s * s))
+    for c0 in range(0, nw, chunk):
+        sl = slice(c0, c0 + chunk)
+        qf, kf, vf = (t[sl].float().transpose(1, 2) for t in (q, k, v))  # (c, H, S, D)
+        sc = torch.matmul(qf, kf.transpose(-1, -2)) * (1.0 / float(d) ** 0.5)
+        sc = sc.masked_fill(~mask[sl, None], _LARGE_NEGATIVE)
+        out[sl] = torch.matmul(torch.softmax(sc, dim=-1), vf).transpose(1, 2).to(q.dtype)
+    return out
+
+
+def serialized_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         coords: torch.Tensor, valid: torch.Tensor, window_size: int = 512,
+                         shift: int = 0, curve: str = "z_order") -> torch.Tensor:
+    """Space-filling-curve windowed attention over sparse voxels.
+
+    q, k, v (N, H, D) per-voxel heads; coords (N, 3); valid (N,). Voxels are
+    ordered along the curve (pad slots last), rolled by `shift`, cut into
+    windows of `window_size` tokens; valid queries attend valid keys of
+    their window. Returns (N, H, D) in the original slot order."""
+    from labelany3d_tpu_torch.ops.morton import hilbert_encode_3d, morton_encode_3d
+
+    n, h, d = q.shape
+    code = morton_encode_3d(coords) if curve == "z_order" else hilbert_encode_3d(coords)
+    order = torch.argsort(torch.where(valid, code, torch.full_like(code, 2 ** 30)), stable=True)
+    pad = (-n) % window_size
+
+    def window(t):
+        t = t[order]
+        if shift:
+            t = torch.roll(t, -shift, dims=0)
+        t = torch.cat([t, t.new_zeros((pad, *t.shape[1:]))])
+        return t.reshape(-1, window_size, *t.shape[1:])
+
+    vm = window(valid)
+    out = _window_sdpa(window(q), window(k), window(v), vm[:, :, None] & vm[:, None, :])
+    out = out.reshape(-1, h, d)[:n]
+    if shift:
+        out = torch.roll(out, shift, dims=0)
+    return out[torch.argsort(order)]
+
+
+def windowed_attention_3d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          coords: torch.Tensor, valid: torch.Tensor, grid_size: int,
+                          window_size: int = 8, shift: int = 0,
+                          max_per_window: int = 512) -> torch.Tensor:
+    """Shifted 3D spatial window attention over sparse voxels.
+
+    Voxels attend within their window_size^3 cell (the grid shifted by
+    `shift` along each axis). Each cell holds at most `max_per_window`
+    voxels, in slot order; overflow voxels pass v through. Only occupied
+    windows are computed, each padded to the fullest one's count: empty
+    slots are masked keys and their rows are never read, so the real rows
+    are those of the JAX package's dense `max_per_window` buffer."""
+    n, h, d = q.shape
+    dev = q.device
+    wcoord = torch.div(coords.long() + shift, window_size, rounding_mode="floor")
+    wpa = (grid_size + window_size - 1) // window_size + (1 if shift else 0)
+    num_windows = wpa ** 3
+    wid = (wcoord[:, 0] * wpa + wcoord[:, 1]) * wpa + wcoord[:, 2]
+    wid = torch.where(valid, wid, torch.full_like(wid, num_windows))  # pad slots -> overflow bin
+    order = torch.argsort(wid, stable=True)
+    swid = wid[order]
+    rank = torch.arange(n, device=dev) - torch.searchsorted(swid, swid, side="left")
+    in_slot = (rank < max_per_window) & (swid < num_windows)
+    occupied, wslot = torch.unique(torch.where(in_slot, swid, num_windows), return_inverse=True)
+    n_occ = int((occupied < num_windows).sum())
+    out_sorted = v[order].clone()  # overflow voxels keep v
+    if n_occ == 0:
+        return out_sorted[torch.argsort(order)]
+    s = int(rank[in_slot].max()) + 1
+    slot = (wslot * s + rank)[in_slot]
+
+    def scatter(t):
+        buf = t.new_zeros((n_occ * s, *t.shape[1:]))
+        buf[slot] = t[order][in_slot]
+        return buf.reshape(n_occ, s, *t.shape[1:])
+
+    occ = scatter(torch.ones(n, dtype=torch.bool, device=dev))
+    # Empty windows' rows would have no key: open the diagonal, as JAX does.
+    eye = torch.eye(s, dtype=torch.bool, device=dev)
+    out_w = _window_sdpa(scatter(q), scatter(k), scatter(v),
+                         (occ[:, :, None] & occ[:, None, :]) | eye)
+    out_sorted[in_slot] = out_w.reshape(n_occ * s, h, d)[slot]
+    return out_sorted[torch.argsort(order)]

@@ -6,8 +6,9 @@ DepthPro, conditioned on MoGe's focal, gives metric depth),
 `FakeDepthBackend` serves pre-registered analytic depth for tests, and
 `TorchMatcherBackend` mirrors `JaxMatcherBackend` (TwoViewMatcher +
 reciprocal NN) for the layout stage's registration. The stage-2 to stage-6
-factories give the shipping defaults and raise for the generative backends
-that are not ported.
+factories give the shipping defaults, TRELLIS for stage 6's
+`obj_rec=trellis`, and raise for the generative backends that are not
+ported.
 """
 
 from __future__ import annotations
@@ -305,7 +306,7 @@ def make_depth(preset: str = "large", **kw) -> TorchDepthBackend:
 # The generative backends of stages 2 to 6 that are not ported, and where
 # ROADMAP.md queue 1 has them. Their names raise instead of falling back.
 _NOT_PORTED = {"invsr": "item 6, the SD-class stack", "our": "item 6, the SD-class stack",
-               "zero123": "item 6, the SD-class stack", "trellis": "item 5, TRELLIS",
+               "zero123": "item 6, the SD-class stack",
                "hunyuan3d": "item 7, Hunyuan3D", "hunyuan3d_carve": "item 7, Hunyuan3D"}
 
 
@@ -341,9 +342,17 @@ def make_elevation(backend: str = "zero", **_kw):
     return _shipping_default("elevation", backend, "zero", ZeroElevation)
 
 
-def make_reconstruction(backend: str = "silhouette", **_kw):
-    """'silhouette' (the shipping default); 'trellis', 'hunyuan3d' and
-    'hunyuan3d_carve' are not ported."""
+def make_reconstruction(backend: str = "silhouette", tiny: bool = False, device=None,
+                        seed: int = 0, **_kw):
+    """'silhouette' (the shipping default) or 'trellis': a `TrellisPipeline`
+    on `device` at `TrellisPipelineConfig()` with its weights held in bf16,
+    or at `tiny_test()` in float32 with `tiny`, its weights random from
+    `seed`. 'hunyuan3d' and 'hunyuan3d_carve' are not ported."""
+    if backend == "trellis":
+        from labelany3d_tpu_torch.models.trellis import TrellisPipeline, TrellisPipelineConfig
+
+        return TrellisPipeline(TrellisPipelineConfig.tiny_test() if tiny else None, seed=seed,
+                               params_dtype=None if tiny else torch.bfloat16, device=device)
     from labelany3d_tpu_torch.pipeline.stages.generative import SilhouetteExtrude
 
     return _shipping_default("obj_rec", backend, "silhouette", SilhouetteExtrude)

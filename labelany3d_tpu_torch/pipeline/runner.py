@@ -16,10 +16,11 @@ plus dotted `key=value` config overrides. Stages:
   fast            fused depth + boxes -> crops -> export
   all             the eight stages in turn over the index range
 
-The port has the shipping-default backend of each of stages 2, 4, 5 and 6;
-the generative ones raise. Unlike the JAX runner, `all` keeps every stage's
-models loaded. Runs on CUDA; `--device cpu` runs the plain PyTorch path on
-the CPU. The JAX runner's `--wild` mode is not ported.
+The port has the shipping-default backend of each of stages 2, 4, 5 and 6,
+and TRELLIS for stage 6 (`run.obj_rec=trellis`); the other generative ones
+raise. Unlike the JAX runner, `all` keeps every stage's models loaded. Runs
+on CUDA; `--device cpu` runs the plain PyTorch path on the CPU. The JAX
+runner's `--wild` mode is not ported.
 """
 
 from __future__ import annotations
@@ -51,8 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
 def run_stages(stage: str, cfg: PipelineConfig, loader, source, save_dir: str, split: str,
                start_index: int, end_index: int, *, backend=None, matcher=None,
                enhance=None, completion=None, elevation=None,
-               run_options: dict | None = None, preset: str = "large", device=None,
-               timer: StageTimer | None = None, stages: dict | None = None) -> dict:
+               run_options: dict | None = None, preset: str = "large", tiny: bool = False,
+               device=None, timer: StageTimer | None = None, stages: dict | None = None) -> dict:
     """Run one route over an index range; returns {stage: count}.
 
     `backend` defaults to `make_depth(preset)` pinned to the first bucket,
@@ -62,7 +63,8 @@ def run_stages(stage: str, cfg: PipelineConfig, loader, source, save_dir: str, s
     the reconstruction backend, default to the registry's choice from
     `run_options` (the config's `run` section: `enhance`,
     `amodal_completion`, `elevation`, `obj_rec`), whose defaults are the
-    shipping ones.
+    shipping ones; `obj_rec=trellis` builds TRELLIS on `device`, at its
+    tiny test config with `tiny` (the CLI's `models.tiny`).
     `stages`, when given, receives each stage object by name (a caller can
     read `stages["layout"].failures`)."""
     from labelany3d_tpu_torch.pipeline.backends import default_registry
@@ -132,7 +134,8 @@ def run_stages(stage: str, cfg: PipelineConfig, loader, source, save_dir: str, s
 
     def run_reconstruction():
         backend_3d = registry.get("reconstruction",
-                                  backend=str(run_options.get("obj_rec", "silhouette")))
+                                  backend=str(run_options.get("obj_rec", "silhouette")),
+                                  tiny=tiny, device=device, seed=cfg.seed)
         stages["reconstruction"] = ReconstructionStage(cfg, loader, save_dir, split,
                                                        backend=backend_3d)
         return stages["reconstruction"].run(start_index, end_index)
@@ -180,10 +183,11 @@ def main(argv=None, device=None) -> int:
     loader = CoconutLoader(split=args.split, annotations_dir=annotations_dir)
     end = min(args.end_index, len(loader))
     start = min(args.start_index, end)
-    preset = "tiny_test" if bool(cfg_node.models.tiny) else str(cfg_node.models.moge.preset)
+    tiny = bool(cfg_node.models.tiny)
+    preset = "tiny_test" if tiny else str(cfg_node.models.moge.preset)
     timer = StageTimer()
     run_stages(args.stage, cfg, loader, FileImageSource(images_root), args.save_dir,
-               args.split, start, end, run_options=cfg_node.run, preset=preset,
+               args.split, start, end, run_options=cfg_node.run, preset=preset, tiny=tiny,
                device=device or args.device, timer=timer)
     print(timer.report())
     return 0

@@ -31,6 +31,13 @@ def test_import_leaves_jax_out():
         "import labelany3d_tpu_torch.pipeline.stages.boxes\n"
         "import labelany3d_tpu_torch.pipeline.stages.generative\n"
         "import labelany3d_tpu_torch.data.meshio\n"
+        "import labelany3d_tpu_torch.models.trellis\n"
+        "import labelany3d_tpu_torch.models.trellis.bake\n"
+        "import labelany3d_tpu_torch.models.convert_trellis\n"
+        "import labelany3d_tpu_torch.ops.morton\n"
+        "import labelany3d_tpu_torch.ops.sparse_conv\n"
+        "import labelany3d_tpu_torch.ops.marching_cubes\n"
+        "import labelany3d_tpu_torch.ops.splat\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
     )
@@ -56,6 +63,12 @@ def test_source_scan_finds_no_forbidden_import():
     # The modules of the boxes stage and of stages 2 to 6 are scanned too.
     assert {"boxes.py", "generative.py"} <= {f.name for f in files if f.parent.name == "stages"}
     assert (PKG / "geometry" / "edges.py") in files
+    # TRELLIS's modules and ops are scanned too.
+    assert {"dit.py", "samplers.py", "sparse_structure.py", "slat.py", "decoders.py", "bake.py",
+            "pipeline.py"} <= {f.name for f in files if f.parent.name == "trellis"}
+    assert {"convert_trellis.py"} <= {f.name for f in files if f.parent.name == "models"}
+    assert {"morton.py", "sparse_conv.py", "marching_cubes.py", "splat.py"} <= \
+        {f.name for f in files if f.parent.name == "ops"}
     bad = [(f.name, m) for f in files for m in _imports(f) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 

@@ -31,6 +31,7 @@ REL_TOL = 5e-3
     (36, 1408, 1297),  # the matcher encoder's batch
     (280, 640, 577),   # DepthPro35's patch encoder: 35 patches x 8 images
     (8, 640, 577),     # DepthPro35's image and FoV encoders
+    (1, 1408, 1374),   # TRELLIS's DINOv2 conditioner: 1 + 4 registers + 37^2, batch 1
 ])
 def test_packed_attention_kernel_matches_plain(b, n_pad, n_real):
     if not torch.cuda.is_available():
@@ -78,6 +79,17 @@ def test_flash_attention_kernel_matches_plain(b, sq, sk, masked, strided):
 ])
 def test_flash_attention_kernel_16_heads(b, s, masked):
     _flash_check(b, s, s, masked, False, heads=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,masked", [
+    (2, 4096, 4096, None),           # TRELLIS's SS flow: 16^3 tokens, CFG as a batch of 2
+    (2, 4096, 1374, None),           # its cross-attention to the DINOv2 tokens (ragged tail)
+    (2, 8192, 8192, (7168, 8192)),   # the SLat torso's largest bucket, pad slots masked
+    (2, 8192, 1374, None),           # the SLat torso's cross-attention
+])
+def test_flash_attention_kernel_trellis_shapes(b, sq, sk, masked):
+    _flash_check(b, sq, sk, masked, False, heads=16)
 
 
 def _flash_check(b, sq, sk, masked, strided, heads):
@@ -345,3 +357,18 @@ def test_reciprocal_nn_match_prepares_each_bank_once(monkeypatch):
     assert len(calls) == 2
     assert rnn.KERNEL_LAUNCHES.count - launches == 2 + 2 * 5
     assert res.xy0.shape == (3, 16 * 12, 2) and res.valid.dtype == torch.bool
+
+
+@pytest.mark.cuda
+def test_trellis_card_matches_cpu():
+    """TRELLIS at a reduced config with head dim 64 (`chip_smoke.py`'s phase
+    11(c)): the card, where K1 and K2 run, against the CPU's plain
+    versions, stage by stage from the same inputs and weights; relative L2
+    within `chip_smoke.TRELLIS_REL_TOL`."""
+    _cuda_or_skip()
+    import chip_smoke
+
+    res = chip_smoke.trellis_card_vs_cpu()
+    assert res["launches"]["k1"] > 0 and res["launches"]["k2"] > 0
+    for name in ("cond", "latent", "slat", "means"):
+        assert res[name] <= chip_smoke.TRELLIS_REL_TOL, (name, res[name])

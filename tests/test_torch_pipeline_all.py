@@ -79,9 +79,9 @@ def test_prep_ref_matches_jax(src, dst):
 
 def test_generative_backends_not_ported_raise():
     reg = default_registry()
+    # TRELLIS ("trellis") is ported: tests/test_torch_trellis_pipeline.py.
     for kind, name in (("enhance", "invsr"), ("completion", "our"), ("elevation", "zero123"),
-                       ("reconstruction", "trellis"), ("reconstruction", "hunyuan3d"),
-                       ("reconstruction", "hunyuan3d_carve")):
+                       ("reconstruction", "hunyuan3d"), ("reconstruction", "hunyuan3d_carve")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
             reg.get(kind, backend=name)
         reg = default_registry()  # nothing cached after a raise, but start clean

@@ -244,9 +244,15 @@ def test_glb_io_matches_jax(tmp_path):
                                rtol=0, atol=0)
     textured = jmeshio.Mesh(jm.vertices, jm.faces, uv=np.zeros((len(jm.vertices), 2), np.float32),
                             texture=np.zeros((4, 4, 3), np.uint8))
+    textured.texture[1:, 2:] = 200  # vertices sample more than one texel value
+    textured.uv[::2] = 0.9
     jmeshio.save_glb(tmp_path / "tex.glb", textured)
-    with pytest.raises(NotImplementedError, match="textured"):
-        meshio.load_glb(tmp_path / "tex.glb")
+    # A textured GLB (TRELLIS's output) reads back as the JAX package reads
+    # it: UVs, texture, and vertex colours sampled from the texture.
+    got, want = meshio.load_glb(tmp_path / "tex.glb"), jmeshio.load_glb(tmp_path / "tex.glb")
+    for name in ("vertices", "faces", "uv", "texture", "colors"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
+    assert len(np.unique(got.colors, axis=0)) > 1
 
 
 def test_register_objects_matches_jax():
