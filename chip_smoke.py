@@ -36,9 +36,17 @@ weights from a seed:
     made as released torch state dicts from a seed and loaded through
     `models/convert_trellis.py` (DINOv2 ViT-L/14 with registers -> K1; the
     SS and SLat flow DiTs, 25 steps each with CFG as a batch of 2 -> K2;
-    decoders, surface extraction and the texture bake), the `all` route
-    with `run.obj_rec=trellis` over 2 images with 2 objects each, and a
-    reduced TRELLIS with head dim 64 on the card against the CPU.
+    decoders, surface extraction and the texture bake) and a reduced
+    TRELLIS with head dim 64 on the card against the CPU;
+  * the SD-class stack, stages 2, 4 and 5 at `run.enhance=invsr`,
+    `run.amodal_completion=our` and `run.elevation=zero123`: the components
+    at the SD-1.5 widths (CLIP ViT-L/14 text and vision towers, three
+    UNets, the VAE, ISNet at 1024^2, the elevation estimator whose tiny
+    matcher runs K1 and K2 at head dim 32) with weights made as released
+    torch state dicts from a seed and loaded through the port's
+    converters, the `all` route at the reference's configuration (those
+    three and `run.obj_rec=trellis`) over 2 images with 2 objects each, and
+    the tiny configs on the card against the CPU.
 
 Each phase prints one line; any failure exits non-zero. Without CUDA, or
 without the rest of the repository beside it, it exits non-zero and prints
@@ -91,6 +99,11 @@ N_IMAGES = 16
 N_REG_IMAGES = 8           # registration chain: one depth batch of 8
 REG_INSTANCES = 4
 STAGE_A_PAIRS = REG_INSTANCES * 8  # a stage-A matcher forward: 4 objects x 8 orbit views
+# Stage 5's elevation matcher (the tiny MatcherConfig): 256^2 Zero123 views,
+# 8-wide descriptors, start points every 8 px.
+ELEVATION_VIEW = 256
+ELEVATION_DESC = 8
+ELEVATION_STARTS = (ELEVATION_VIEW // 8) ** 2
 CHAIN = ("depth", "crops", "reconstruction", "layout", "export")
 ALL_STAGES = ("depth", "enhance", "crops", "completion", "elevation", "reconstruction",
               "layout", "export")
@@ -162,8 +175,13 @@ def attention_bound_ms(b: int, n_pad: int, n_real: int, heads: int, d: int):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_attention(shape: dict, seed: int, nan_pad: bool = False) -> dict:
-    """K1 against its plain version on the card at one path shape."""
+def check_attention(shape: dict, seed: int, nan_pad: bool = False,
+                    graph: bool = False) -> dict:
+    """K1 against its plain version on the card at one path shape. With
+    `graph`, also the kernel's and SDPA's device times from CUDA-graph
+    replays (`graph_ms`, `library_graph_ms`): at a size whose device work is
+    shorter than the host's launch (the elevation matcher's), the eager
+    `ms` times the host."""
     import torch
     import torch.nn.functional as F
 
@@ -194,6 +212,10 @@ def check_attention(shape: dict, seed: int, nan_pad: bool = False) -> dict:
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask))
         res["bound_ms"], res["bound_by"] = attention_bound_ms(b, n_pad, n_real, heads, d)
         res.update(against_yardsticks(res))
+        if graph:
+            res["graph_ms"] = time_cuda_graph(lambda: att.packed_sdpa(qkv, heads, n_real))
+            res["library_graph_ms"] = time_cuda_graph(
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask))
     return res
 
 
@@ -211,11 +233,12 @@ def bound(nbytes: float, flops: float, peak_flops: float = H100_BF16_FLOPS):
 
 
 def check_flash(b: int, sq: int, sk: int, seed: int, heads: int = 12, d: int = 64,
-                pad_keys: int = 0, strided: bool = False, timed: bool = False) -> dict:
+                pad_keys: int = 0, strided: bool = False, timed: bool = False,
+                graph: bool = False) -> dict:
     """K2 against its plain version on the card. `pad_keys` > 0 masks the
     last keys through segment ids (self-attention) and fills every pad row
     of q, k and v with NaN; `strided` reads q from a (B, H, S, D) tensor
-    through its transposed view."""
+    through its transposed view; `graph` as in `check_attention`."""
     import torch
     import torch.nn.functional as F
 
@@ -257,12 +280,16 @@ def check_flash(b: int, sq: int, sk: int, seed: int, heads: int = 12, d: int = 6
         res["bound_ms"], res["bound_by"] = bound(2 * b * heads * d * (2 * sq + 2 * sk_real),
                                                  4 * b * heads * sq * sk_real * d)
         res.update(against_yardsticks(res))
+        if graph:
+            res["graph_ms"] = time_cuda_graph(lambda: att.flash_sdpa(q, k, v, seg))
+            res["library_graph_ms"] = time_cuda_graph(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
     return res
 
 
 def check_nn(pairs: int, s: int, n: int, seed: int, precision: str,
              n_real: int | None = None, timed: bool = False, c: int = 24,
-             negative: bool = False) -> dict:
+             negative: bool = False, graph: bool = False) -> dict:
     """K3 against its plain version on the same bf16-rounded operands:
     unit-norm descriptors, queries (pairs, s, c) against banks (pairs, n, c).
     With `n_real`, the bank rows at and beyond it hold garbage (NaN and
@@ -272,7 +299,8 @@ def check_nn(pairs: int, s: int, n: int, seed: int, precision: str,
     bank prepared once (`prepare_bank_for_nn`), as the matcher's rounds do;
     the plain version reads the float32 bank. `library_ms`
     (`torch.bmm(q, bank^T).max(-1)` in bf16) is timed where its score
-    matrix fits the card (one pair, the compact round)."""
+    matrix fits the card (one pair, the compact round). `graph` as in
+    `check_attention`."""
     import torch
     import torch.nn.functional as F
 
@@ -329,6 +357,11 @@ def check_nn(pairs: int, s: int, n: int, seed: int, precision: str,
         if pairs * s * n * 2 <= LIBRARY_SCORE_BYTES:
             qb, bt = q.bfloat16(), bank.bfloat16().transpose(1, 2)
             res["library_ms"] = time_cuda(lambda: torch.bmm(qb, bt).max(-1), iters=5)
+            if graph:
+                res["library_graph_ms"] = time_cuda_graph(lambda: torch.bmm(qb, bt).max(-1))
+        if graph:
+            res["graph_ms"] = time_cuda_graph(
+                lambda: rnn.nn_argmax(q, prep, n_real=nr, precision=precision))
         # Queries and banks read once (fp32, c wide), indices and scores
         # written; 2*s*n*c operations per pair and operand pass (three
         # passes for bf16x3).
@@ -779,11 +812,33 @@ def sass_opcodes(library: Path, tool: str) -> dict:
     return {op: sass.count(op) for op in (*SASS_REQUIRED, "UTMASTG")}
 
 
+def device_events(prof) -> list[tuple[float, str, int]]:
+    """(ms, name, count) of a finished trace's device events (kernels,
+    copies) by name, summed from the raw Kineto events: building
+    `key_averages()`'s event tree takes tens of seconds over the 10^5
+    kernels of a chain pass, this a fraction of a second. Falls back to
+    `key_averages()` where the raw events are not exposed."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    acc: dict[str, list] = {}
+    try:
+        raw = [(e.name(), e.duration_ns() / 1e6) for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda]
+    except AttributeError:
+        return [(e.self_device_time_total / 1e3, e.key, e.count) for e in prof.key_averages()
+                if e.device_type == cuda]
+    for name, ms in raw:
+        a = acc.setdefault(name, [0.0, 0])
+        a[0] += ms
+        a[1] += 1
+    return [(ms, name, n) for name, (ms, n) in acc.items()]
+
+
 def profile_pass(run, host: bool = True) -> dict:
     """One pass under torch.profiler: the summed time of the device's own
     events (kernels, copies), each port kernel's share, the events that take
-    most of it, and the host ops with the most self CPU time. Host ops that
-    launch kernels also carry device time in `key_averages`; only device
+    most of it, and the host ops with the most self CPU time. Only device
     events are summed, so nothing is counted twice. With `host` False only
     the device is traced (no host ops listed), which costs a fraction of
     the time of recording every host op."""
@@ -797,17 +852,13 @@ def profile_pass(run, host: bool = True) -> dict:
         run()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    dev, host = [], []
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            dev.append((e.self_device_time_total / 1e3, e.key, e.count))
-        else:
-            host.append((e.self_cpu_time_total / 1e3, e.key, e.count))
-    dev.sort(reverse=True)
-    host.sort(reverse=True)
+    dev = sorted(device_events(prof), reverse=True)
+    hosts = sorted(((e.self_cpu_time_total / 1e3, e.key, e.count) for e in prof.key_averages()
+                    if e.device_type != torch.autograd.DeviceType.CUDA), reverse=True) \
+        if host else []
     out = {"wall_ms": wall * 1e3, "device_ms": sum(r[0] for r in dev),
            "top_device": [(round(ms, 3), name[:60], n) for ms, name, n in dev[:10]],
-           "top_host": [(round(ms, 3), name[:60], n) for ms, name, n in host[:8]]}
+           "top_host": [(round(ms, 3), name[:60], n) for ms, name, n in hosts[:8]]}
     for k, sub in PROFILE_NAMES.items():
         out[f"{k}_ms"] = sum(r[0] for r in dev if sub in r[1])
         out[f"{k}_events"] = sum(r[2] for r in dev if sub in r[1])
@@ -886,6 +937,17 @@ def check_all_route_outputs(save_dir: str, loader) -> dict:
             "ok": sizes == {want} and crops > 0 and not bad and not missing}
 
 
+def matcher_launches(cfg, forwards: int) -> dict:
+    """K1, K2 and K3 launches of `forwards` matcher forwards: its encoder
+    runs K1 with learned positions, K2 with rope; each decoder block's two
+    streams run K2 for self- and cross-attention; a reciprocal-NN match
+    runs K3 twice in each of its 6 rounds."""
+    enc = cfg.encoder
+    enc_k1 = enc.depth if enc.pos_embed == "learned" else 0
+    return {"k1": enc_k1 * forwards, "k2": (enc.depth - enc_k1 + 4 * cfg.dec_depth) * forwards,
+            "k3": 12 * forwards}
+
+
 def run_registration(cfg_kw: dict, tmp: str, seed: int = 3, name: str = "reg",
                      depth_kw: dict | None = None, matcher_cfg=None,
                      matcher_params=None, route: str = "chain",
@@ -958,14 +1020,9 @@ def run_registration(cfg_kw: dict, tmp: str, seed: int = 3, name: str = "reg",
                   else [dp.backbone])
     depth_k1 = (-(-N_REG_IMAGES // cfg.batch_size)
                 * sum(v.depth for v in [backend.moge_cfg.backbone, *depth_vits] if v))
-    # The matcher's encoder runs K1 with learned positions, K2 with rope;
-    # each decoder block's two streams run K2 for self- and cross-attention.
-    enc = matcher.cfg.encoder
-    enc_k1 = enc.depth if enc.pos_embed == "learned" else 0
     fwd = res["forwards"]
-    res["want"] = {"k1": depth_k1 + enc_k1 * fwd,
-                   "k2": (enc.depth - enc_k1 + 4 * matcher.cfg.dec_depth) * fwd,
-                   "k3": 12 * fwd, "k4": placed}
+    m = matcher_launches(matcher.cfg, fwd)
+    res["want"] = {"k1": depth_k1 + m["k1"], "k2": m["k2"], "k3": m["k3"], "k4": placed}
     res["ok"] = (res["launches"] == res["want"] and not any(res["plain_calls"].values())
                  and not res["failures"] and fwd > 0
                  and with_boxes == listed and len(with_boxes) == N_REG_IMAGES)
@@ -1182,7 +1239,13 @@ def kernel_checks() -> dict:
           "trellis_slat_cross": check_flash(2, 8192, 1374, seed=44, heads=16, timed=True),
           # The torso shape without segment ids: what the masking costs.
           "trellis_slat_self_unmasked": check_flash(2, 8192, 8192, seed=45, heads=16,
-                                                    timed=True)}
+                                                    timed=True),
+          # Stage 5's elevation matcher: its tiny decoder (2 heads of 32)
+          # over one pair of 256^2 views, and a cross shape through strides.
+          "elevation_decoder": check_flash(1, 1024, 1024, seed=46, heads=2, d=32, timed=True,
+                                           graph=True),
+          "elevation_cross_d32": check_flash(2, 1024, 777, seed=47, heads=2, d=32,
+                                             strided=True)}
     for name, r in k2.items():
         _say(f"K2:{name}", **r, max_abs_tol=K2_MAX_ABS_TOL, rel_tol=K2_REL_TOL)
     bad = [n for n, r in k2.items() if not r["finite"] or r["max_abs_err"] > K2_MAX_ABS_TOL
@@ -1208,6 +1271,13 @@ def kernel_checks() -> dict:
             k3["stage_b_compact_bf16"] = check_nn(4, 1024, n, seed=27, precision=prec,
                                                   timed=True)
         k3[f"one_pair_{prec}"] = check_nn(1, 4096, n, seed=24, precision=prec, timed=True)
+        if prec == "bf16":
+            # Stage 5's elevation matcher: one pair of 256^2 views, 8-wide
+            # descriptors, 32^2 start points. Its compacted rounds query
+            # min(1024, 32^2) points, so every round has this shape.
+            k3["elevation_bf16"] = check_nn(1, ELEVATION_STARTS, ELEVATION_VIEW ** 2, seed=28,
+                                            precision=prec, c=ELEVATION_DESC, timed=True,
+                                            graph=True)
         k3[f"padded_{prec}"] = check_nn(2, 1024, n, seed=23, precision=prec, n_real=n - 37)
         k3[f"negative_{prec}"] = check_nn(2, 1000, n, seed=25, precision=prec, n_real=n - 37,
                                           negative=True)
@@ -1230,8 +1300,8 @@ def kernel_checks() -> dict:
 
 
 # Phase 11, TRELLIS: weights in the release's torch layout, the components at
-# full width on one object, the `all` route with obj_rec=trellis, and the
-# card against the CPU at a reduced config with head dim 64.
+# full width on one object, and the card against the CPU at a reduced config
+# with head dim 64. (The `all` route with obj_rec=trellis is phase 12(c).)
 
 # The card (K1, K2: bf16 P before the PV product) against the CPU's plain
 # versions, relative L2, stage by stage from the same inputs and bf16
@@ -1503,71 +1573,6 @@ def run_trellis_components(tmp: str, weights: dict) -> dict:
     return res
 
 
-def run_trellis_route(tmp: str) -> dict:
-    """Phase 11(b): `run_stages("all", ...)` with run.obj_rec=trellis over
-    2 synthetic images with 2 objects each, reconstruction from the
-    registry's `make_reconstruction("trellis")` at `TrellisPipelineConfig()`
-    with its default (random, zero-gated) initialisation, the other stages'
-    backends as phase 10's. The meshes are then empty, as in the JAX
-    package; the layout stage skips them, so no scene has boxes."""
-    import torch
-
-    from labelany3d_tpu_torch.data.meshio import load_glb
-    from labelany3d_tpu_torch.pipeline.backends import TorchMatcherBackend, default_registry
-    from labelany3d_tpu_torch.pipeline.config import PipelineConfig
-    from labelany3d_tpu_torch.pipeline.runner import run_stages
-    from labelany3d_tpu_torch.pipeline.scene import SceneDir, scene_dir_name
-    from labelany3d_tpu_torch.pipeline.stages.common import ArrayImageSource
-    from labelany3d_tpu_torch.utils.profiling import StageTimer
-
-    cfg = PipelineConfig(bbox_method="minarea_pallas")
-    loader = SyntheticLoader(TRELLIS_IMAGES, IMAGE_HW, seed=11, min_inst=TRELLIS_INSTANCES,
-                             max_inst=TRELLIS_INSTANCES)
-    backend = default_registry().get("depth", preset="large", pin_hw=cfg.bucket_sizes()[0],
-                                     device="cuda", seed=cfg.seed)
-    matcher = TorchMatcherBackend(tiny=False, seed=cfg.seed, device="cuda")
-    counters, plains = kernel_counters()
-    for k in (*counters.values(), *plains.values()):
-        k.reset()
-    out_dir, stages, timer = os.path.join(tmp, "trellis_all"), {}, StageTimer()
-    t0 = time.perf_counter()
-    run_stages("all", cfg, loader, ArrayImageSource(loader.pixels), out_dir, "val", 0,
-               TRELLIS_IMAGES, backend=backend, matcher=matcher,
-               run_options={"obj_rec": "trellis"}, device="cuda", timer=timer, stages=stages)
-    torch.cuda.synchronize()
-    res = {"s": time.perf_counter() - t0,
-           "stage_s": {k: timer.stats[k].total_seconds for k in ALL_STAGES},
-           "launches": {k: v.count for k, v in counters.items()},
-           "plain_calls": {k: v.count for k, v in plains.items()},
-           "failures": list(stages["layout"].failures), "forwards": matcher.forwards}
-    glbs, with_boxes, depths = [], set(), 0
-    for info in loader.images:
-        name = scene_dir_name(info["file_name"])
-        sd = SceneDir(os.path.join(out_dir, "val", name))
-        glbs += [load_glb(sd.object_mesh(i)) for i in sd.list_crop_ids()
-                 if sd.object_mesh(i).exists()]
-        depths += sd.depth_map.exists()
-        if sd.bbox3d.exists() and sd.read_bbox3d():
-            with_boxes.add(name)
-    res["glbs"], res["empty_glbs"] = len(glbs), sum(m.is_empty for m in glbs)
-    with open(os.path.join(out_dir, "COCO3D_val.json")) as f:
-        listed = {os.path.basename(im["file_path"]).rsplit(".", 1)[0]
-                  for im in json.load(f)["images"]}
-    res["scenes_with_boxes"], res["coco3d_images"] = sorted(with_boxes), sorted(listed)
-    tc = stages["reconstruction"].backend.cfg
-    k1, k2 = trellis_launches(tc)
-    n = res["glbs"]
-    res["want"] = {"k1": -(-TRELLIS_IMAGES // cfg.batch_size)
-                   * (backend.moge_cfg.backbone.depth + backend.dp_cfg.backbone.depth) + k1 * n,
-                   "k2": k2 * n, "k3": 0, "k4": 0}
-    res["ok"] = (res["launches"] == res["want"] and not any(res["plain_calls"].values())
-                 and not res["failures"] and n == TRELLIS_IMAGES * TRELLIS_INSTANCES
-                 and depths == TRELLIS_IMAGES and with_boxes == listed)
-    del stages, backend, matcher
-    torch.cuda.empty_cache()
-    return res
-
-
 def trellis_check_config():
     """A reduced TRELLIS with head dim 64 everywhere, so K1 and K2 take it:
     a 2-block ViT of width 128 (2 heads) at 112 px, flows of width 128 (2
@@ -1662,8 +1667,9 @@ def trellis_card_vs_cpu(seed: int = 50) -> dict:
 
 
 def run_trellis(tmp: str) -> dict:
-    """Phase 11: weights, (a) the components, (b) the route, (c) card
-    against CPU; prints each part's lines. Returns the three results."""
+    """Phase 11: weights, (a) the components, (c) card against CPU; prints
+    each part's lines. Phase 12(c) drives the `all` route with
+    obj_rec=trellis. Returns both results."""
     from labelany3d_tpu_torch.models.trellis import TrellisPipelineConfig
 
     t0 = time.perf_counter()
@@ -1686,22 +1692,710 @@ def run_trellis(tmp: str) -> dict:
     if not comp["ok"]:
         raise SystemExit("trellis components: launches, plain calls, voxels, faces or the GLB "
                          "round trip are not as required (see trellis:components)")
-    route = run_trellis_route(tmp)
-    _say("trellis:route", s=route["s"], stage_s=json.dumps(route["stage_s"]),
-         launches=json.dumps(route["launches"]), want=json.dumps(route["want"]),
-         plain_calls=json.dumps(route["plain_calls"]), failures=json.dumps(route["failures"]),
-         glbs=route["glbs"], empty_glbs=route["empty_glbs"], forwards=route["forwards"],
-         scenes_with_boxes=json.dumps(route["scenes_with_boxes"]),
-         coco3d_images=json.dumps(route["coco3d_images"]))
-    if not route["ok"]:
-        raise SystemExit("trellis route: launches, plain calls, failures, GLBs or COCO3D are "
-                         "not as required (see trellis:route)")
     check = trellis_card_vs_cpu()
     _say("trellis:card_vs_cpu", **{k: json.dumps(v) if isinstance(v, (dict, tuple)) else v
                                    for k, v in check.items()}, rel_tol=TRELLIS_REL_TOL,
          means_tol=TRELLIS_MEANS_TOL)
     if not check["ok"]:
         raise SystemExit("trellis: the card disagrees with the CPU (see trellis:card_vs_cpu)")
+    return {"components": comp, "card_vs_cpu": check}
+
+
+# Phase 12, the SD-class stack (stage 2's `invsr`, stage 4's `our`, stage 5's
+# `zero123`): weights in the releases' torch layouts (diffusers, transformers,
+# DIS), the components at full width, the `all` route at the reference's
+# configuration, and the card against the CPU at the tiny configs.
+
+
+def _sd_resnet_state(st, pre: str, c_in: int, c_out: int, temb: int | None = None) -> None:
+    """A diffusers ResnetBlock2D (with `time_emb_proj` when `temb`)."""
+    st.norm(pre + "norm1.", c_in)
+    st.conv(pre + "conv1.", c_in, c_out, 3)
+    if temb:
+        st.linear(pre + "time_emb_proj.", temb, c_out)
+    st.norm(pre + "norm2.", c_out)
+    st.conv(pre + "conv2.", c_out, c_out, 3)
+    if c_in != c_out:
+        st.conv(pre + "conv_shortcut.", c_in, c_out, 1)
+
+
+def _sd_transformer_state(st, pre: str, c: int, ctx: int) -> None:
+    """A diffusers SD-1.x Transformer2DModel: conv proj_in/out, one block."""
+    st.norm(pre + "norm.", c)
+    st.conv(pre + "proj_in.", c, c, 1)
+    tb = pre + "transformer_blocks.0."
+    for i, kv in ((1, c), (2, ctx)):
+        st.norm(tb + f"norm{i}.", c)
+        st.rand(tb + f"attn{i}.to_q.weight", c, c)
+        st.rand(tb + f"attn{i}.to_k.weight", c, kv)
+        st.rand(tb + f"attn{i}.to_v.weight", c, kv)
+        st.linear(tb + f"attn{i}.to_out.0.", c, c)
+    st.norm(tb + "norm3.", c)
+    st.linear(tb + "ff.net.0.proj.", c, 8 * c)
+    st.linear(tb + "ff.net.2.", 4 * c, c)
+    st.conv(pre + "proj_out.", c, c, 1)
+
+
+def _sd_attn_state(st, pre: str, c: int) -> None:
+    """A diffusers group-norm Attention (VAE and noise-predictor blocks)."""
+    st.norm(pre + "group_norm.", c)
+    for n in ("to_q.", "to_k.", "to_v.", "to_out.0."):
+        st.linear(pre + n, c, c)
+
+
+def released_sd_unet_state(cfg, seed: int = 60, std: float = 0.02) -> dict:
+    """A diffusers `UNet2DConditionModel` release's names and shapes for a
+    `UNetConfig`."""
+    st = SyntheticState(seed, std)
+    ws, nrb, ctx = list(cfg.widths), cfg.num_res_blocks, cfg.context_dim
+    tdim = 4 * ws[0]
+    st.conv("conv_in.", cfg.in_channels, ws[0], 3)
+    st.linear("time_embedding.linear_1.", ws[0], tdim)
+    st.linear("time_embedding.linear_2.", tdim, tdim)
+    skips, c = [ws[0]], ws[0]
+    for lvl, w in enumerate(ws):
+        for i in range(nrb):
+            _sd_resnet_state(st, f"down_blocks.{lvl}.resnets.{i}.", c, w, tdim)
+            c = w
+            if lvl in cfg.attn_levels:
+                _sd_transformer_state(st, f"down_blocks.{lvl}.attentions.{i}.", c, ctx)
+            skips.append(c)
+        if lvl < len(ws) - 1:
+            st.conv(f"down_blocks.{lvl}.downsamplers.0.conv.", c, c, 3)
+            skips.append(c)
+    _sd_resnet_state(st, "mid_block.resnets.0.", c, c, tdim)
+    _sd_transformer_state(st, "mid_block.attentions.0.", c, ctx)
+    _sd_resnet_state(st, "mid_block.resnets.1.", c, c, tdim)
+    for u in range(len(ws)):
+        lvl = len(ws) - 1 - u
+        for i in range(nrb + 1):
+            _sd_resnet_state(st, f"up_blocks.{u}.resnets.{i}.", c + skips.pop(), ws[lvl], tdim)
+            c = ws[lvl]
+            if lvl in cfg.attn_levels:
+                _sd_transformer_state(st, f"up_blocks.{u}.attentions.{i}.", c, ctx)
+        if lvl > 0:
+            st.conv(f"up_blocks.{u}.upsamplers.0.conv.", c, c, 3)
+    st.norm("conv_norm_out.", c)
+    st.conv("conv_out.", c, cfg.out_channels, 3)
+    return st
+
+
+def with_conv_in(state: dict, in_channels: int, seed: int = 61) -> dict:
+    """`state` with its `conv_in` widened to `in_channels` (the 8-channel
+    completion and Zero123 UNets from one 4-channel state): the extra input
+    channels N(0, std^2) from `seed`, everything else shared."""
+    import numpy as np
+
+    w = state["conv_in.weight"]
+    extra = np.random.default_rng(seed).standard_normal(
+        (w.shape[0], in_channels - w.shape[1]) + w.shape[2:], dtype=np.float32)
+    out = dict(state)
+    out["conv_in.weight"] = np.concatenate([w, extra * np.float32(w.std())], axis=1)
+    return out
+
+
+def released_sd_vae_state(cfg, seed: int = 62, std: float = 0.02) -> dict:
+    """A diffusers `AutoencoderKL` release's names and shapes for a `VAEConfig`."""
+    st = SyntheticState(seed, std)
+    ws, lc, n = list(cfg.widths), cfg.latent_channels, len(cfg.widths)
+
+    def mid(pre, c):
+        _sd_resnet_state(st, pre + "resnets.0.", c, c)
+        _sd_attn_state(st, pre + "attentions.0.", c)
+        _sd_resnet_state(st, pre + "resnets.1.", c, c)
+
+    st.conv("encoder.conv_in.", 3, ws[0], 3)
+    c = ws[0]
+    for i, w in enumerate(ws):
+        for r in range(cfg.layers_per_block):
+            _sd_resnet_state(st, f"encoder.down_blocks.{i}.resnets.{r}.", c, w)
+            c = w
+        if i < n - 1:
+            st.conv(f"encoder.down_blocks.{i}.downsamplers.0.conv.", w, w, 3)
+    mid("encoder.mid_block.", c)
+    st.norm("encoder.conv_norm_out.", c)
+    st.conv("encoder.conv_out.", c, 2 * lc, 3)
+    st.conv("quant_conv.", 2 * lc, 2 * lc, 1)
+    st.conv("post_quant_conv.", lc, lc, 1)
+    st.conv("decoder.conv_in.", lc, ws[-1], 3)
+    c = ws[-1]
+    mid("decoder.mid_block.", c)
+    for j, w in enumerate(reversed(ws)):
+        for r in range(cfg.layers_per_block + 1):
+            _sd_resnet_state(st, f"decoder.up_blocks.{j}.resnets.{r}.", c, w)
+            c = w
+        if j < n - 1:
+            st.conv(f"decoder.up_blocks.{j}.upsamplers.0.conv.", w, w, 3)
+    st.norm("decoder.conv_norm_out.", c)
+    st.conv("decoder.conv_out.", c, 3, 3)
+    return st
+
+
+def _clip_layers_state(st, pre: str, cfg) -> None:
+    w, hid = cfg.width, int(cfg.width * cfg.mlp_ratio)
+    for i in range(cfg.depth):
+        b = f"{pre}encoder.layers.{i}."
+        st.norm(b + "layer_norm1.", w)
+        st.norm(b + "layer_norm2.", w)
+        for n in ("q_proj.", "k_proj.", "v_proj.", "out_proj."):
+            st.linear(b + "self_attn." + n, w, w)
+        st.linear(b + "mlp.fc1.", w, hid)
+        st.linear(b + "mlp.fc2.", hid, w)
+
+
+def released_clip_text_state(cfg, seed: int = 63, std: float = 0.02) -> dict:
+    """A transformers `CLIPTextModel(WithProjection)` release for a
+    `CLIPTextConfig`."""
+    st = SyntheticState(seed, std)
+    st.rand("text_model.embeddings.token_embedding.weight", cfg.vocab_size, cfg.width)
+    st.rand("text_model.embeddings.position_embedding.weight", cfg.max_len, cfg.width)
+    _clip_layers_state(st, "text_model.", cfg)
+    st.norm("text_model.final_layer_norm.", cfg.width)
+    if cfg.projection_dim is not None:
+        st.rand("text_projection.weight", cfg.projection_dim, cfg.width)
+    return st
+
+
+def released_clip_vision_state(cfg, seed: int = 64, std: float = 0.02) -> dict:
+    """A transformers `CLIPVisionModelWithProjection` release for a
+    `CLIPVisionConfig` (HF's `pre_layrnorm` spelling)."""
+    st = SyntheticState(seed, std)
+    p, w = cfg.patch_size, cfg.width
+    st.conv("vision_model.embeddings.patch_embedding.", 3, w, p, bias=False)
+    st.rand("vision_model.embeddings.class_embedding", w)
+    st.rand("vision_model.embeddings.position_embedding.weight",
+            1 + (cfg.image_size // p) ** 2, w)
+    st.norm("vision_model.pre_layrnorm.", w)
+    _clip_layers_state(st, "vision_model.", cfg)
+    st.norm("vision_model.post_layernorm.", w)
+    if cfg.projection_dim is not None:
+        st.rand("visual_projection.weight", cfg.projection_dim, w)
+    return st
+
+
+def released_cc_state(emb_dim: int, out_dim: int, seed: int = 65, std: float = 0.02) -> dict:
+    """Zero123's `clip_camera_projection` (Linear(emb_dim + 4 -> out_dim))."""
+    st = SyntheticState(seed, std)
+    st.linear("proj.", emb_dim + 4, out_dim)
+    return st
+
+
+def released_isnet_state(cfg, seed: int = 66, std: float = 0.02) -> dict:
+    """DIS's `isnet-general-use.pth` names and shapes for an `ISNetConfig`:
+    REBNCONVs with BatchNorm running statistics (mean 0, variance 1)."""
+    st = SyntheticState(seed, std)
+
+    def rebn(pre, c_in, c_out):
+        st.conv(pre + "conv_s1.", c_in, c_out, 3)
+        st.norm(pre + "bn_s1.", c_out)
+        st.const(pre + "bn_s1.running_mean", 0.0, c_out)
+        st.const(pre + "bn_s1.running_var", 1.0, c_out)
+
+    def rsu(pre, c_in, spec):
+        kind, mid, out = spec
+        n = 4 if kind == "4F" else int(kind)
+        rebn(pre + "rebnconvin.", c_in, out)
+        rebn(pre + "rebnconv1.", out, mid)
+        for i in range(2, n + 1):
+            rebn(pre + f"rebnconv{i}.", mid, mid)
+        for i in range(n - 1, 1, -1):
+            rebn(pre + f"rebnconv{i}d.", 2 * mid, mid)
+        rebn(pre + "rebnconv1d.", 2 * mid, out)
+
+    st.conv("conv_in.", 3, cfg.conv_in, 3)
+    c, enc_out = cfg.conv_in, []
+    for i, spec in enumerate(cfg.enc):
+        rsu(f"stage{i + 1}.", c, spec)
+        c = spec[2]
+        enc_out.append(c)
+    for j, spec in enumerate(cfg.dec):
+        rsu(f"stage{len(cfg.dec) - j}d.", c + enc_out[len(cfg.enc) - 2 - j], spec)
+        c = spec[2]
+    for i, ch in enumerate([s[2] for s in cfg.dec][::-1] + [enc_out[-1]]):
+        st.conv(f"side{i + 1}.", ch, 1, 3)
+    return st
+
+
+def released_noise_predictor_state(cfg, seed: int = 67, std: float = 0.02) -> dict:
+    """InvSR's `noise_predictor_sd_turbo_v5.pth` names (`encoder.*`) and
+    shapes for a `NoisePredictorConfig`."""
+    st = SyntheticState(seed, std)
+    ws, temb = list(cfg.widths), cfg.temb_channels
+    st.conv("encoder.conv_in.", cfg.in_channels, ws[0], 3)
+    st.linear("encoder.time_embedding.linear_1.", max(128, ws[0]), temb)
+    st.linear("encoder.time_embedding.linear_2.", temb, temb)
+    c = ws[0]
+    for i, w in enumerate(ws):
+        for j in range(cfg.layers_per_block[i]):
+            _sd_resnet_state(st, f"encoder.down_blocks.{i}.resnets.{j}.", c, w, temb)
+            c = w
+            _sd_attn_state(st, f"encoder.down_blocks.{i}.attentions.{j}.", c)
+        if i != len(ws) - 1:
+            st.conv(f"encoder.down_blocks.{i}.downsamplers.0.conv.", c, w, 3)
+    _sd_resnet_state(st, "encoder.mid_block.resnets.0.", c, c, temb)
+    _sd_attn_state(st, "encoder.mid_block.attentions.0.", c)
+    _sd_resnet_state(st, "encoder.mid_block.resnets.1.", c, c, temb)
+    st.norm("encoder.conv_norm_out.", c)
+    st.conv("encoder.conv_out.", c, 2 * cfg.latent_channels, 3)
+    return st
+
+
+# The card against the CPU at the tiny SD configs in float32 (TF32 off on
+# both): the UNet's and the VAE's outputs, relative L2. Their sums run in
+# another order, nothing else differs; a wrong padding, norm or skip moves
+# them by 1e-2 or more.
+SD_REL_TOL = 1e-4
+# The same for the 8-bit images out of a completion and a Zero123 view: a
+# float32 difference of 1e-6 flips a pixel's truncation to 8 bits now and
+# then, one level each; a few hundred such flips at 64 px give 1e-3.
+SD_IMAGE_REL_TOL = 5e-3
+# The same samplers' float images (the VAE's decode, before the clamp and
+# the 8-bit truncation). DDIM and the guidance carry the UNet's 1e-6 through
+# 20 and 50 steps; on the CPU a relative 1e-6 change of the UNet's weights
+# moves these images by 3.8e-6 (completion) and 3.0e-6 (view), and one in
+# 10^4 8-bit values by a level, so an 8-bit difference of 0 is no sign of a
+# flat image. A wrong padding, norm or skip moves them by 1e-2 or more.
+SD_SAMPLE_REL_TOL = 1e-3
+# The card's 8-bit images must have content (at least this standard
+# deviation in levels, at most this share of pixels at 0 or 255): a clamped
+# or flat image agrees with the CPU's whatever the port computed.
+SD_MIN_STD_LEVELS = 8.0
+SD_MAX_SATURATED = 0.25
+SD_IMAGES = 2              # phase 12(c): 2 images x 2 objects
+SD_INSTANCES = 2
+SD_CROP = 512              # the crops the route's stage 3 writes
+
+
+def sd_weights(seed: int = 60) -> tuple[dict, int]:
+    """Flax-layout trees of the SD-class components at the released widths
+    from seeded release-layout state dicts through the port's converters:
+    CLIP ViT-L/14 text and vision towers, one SD-1.5 UNet state (4 input
+    channels: InvSR) whose `conv_in` is widened to 8 for the completion and
+    Zero123 UNets, the VAE, Zero123's cc_projection and ISNet
+    general-use. Returns the trees and the parameters made."""
+    import dataclasses
+
+    from labelany3d_tpu_torch.models.clip import (
+        CLIPTextConfig,
+        CLIPVisionConfig,
+        convert_clip_text,
+    )
+    from labelany3d_tpu_torch.models.diffusion.convert import convert_sd_unet, convert_zero123
+    from labelany3d_tpu_torch.models.diffusion.unet import UNetConfig
+    from labelany3d_tpu_torch.models.diffusion.vae import VAEConfig
+    from labelany3d_tpu_torch.models.saliency import ISNetConfig, convert_isnet
+
+    ucfg, tcfg, vcfg = UNetConfig(), CLIPTextConfig.sd15(), CLIPVisionConfig.vitl14()
+    vae_cfg = VAEConfig()
+    unet4 = released_sd_unet_state(ucfg, seed)
+    vae = released_sd_vae_state(vae_cfg, seed + 2)
+    vision = released_clip_vision_state(vcfg, seed + 4)
+    cc = released_cc_state(vcfg.projection_dim, ucfg.context_dim, seed + 5)
+    text = released_clip_text_state(tcfg, seed + 3)
+    isnet = released_isnet_state(ISNetConfig.general_use(), seed + 6)
+    n = sum(v.size for st in (unet4, vae, vision, cc, text, isnet) for v in st.values())
+    zero123 = convert_zero123(with_conv_in(unet4, 8, seed + 1), vae, vision, cc,
+                              unet_cfg=dataclasses.replace(ucfg, in_channels=8),
+                              vae_cfg=vae_cfg, vision_cfg=vcfg)
+    trees = {"unet4": convert_sd_unet(unet4, ucfg), "zero123": zero123,
+             "unet8": zero123["unet"], "vae": zero123["vae"],
+             "text": convert_clip_text(text, tcfg),
+             "isnet": convert_isnet(isnet, ISNetConfig.general_use())}
+    return trees, n
+
+
+def device_ms_by_op(prof) -> dict:
+    """Device ms of a traced pass by the host op that launched it: the
+    plain attention (batched matmuls and softmax), the other GEMMs, the
+    convolutions, the norms, and the rest; K1, K2 and K3 (launched through
+    ctypes, under no aten op) by kernel name."""
+    import torch
+
+    groups = {"attention": ("aten::bmm", "aten::_softmax", "aten::baddbmm"),
+              "gemm": ("aten::addmm", "aten::mm"),
+              "conv": ("convolution",),
+              "norm": ("aten::native_group_norm", "aten::native_layer_norm")}
+    out = {k: 0.0 for k in (*groups, "other")}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA or not e.self_device_time_total:
+            continue
+        ms = e.self_device_time_total / 1e3
+        for g, names in groups.items():
+            if any(n in e.key for n in names):
+                out[g] += ms
+                break
+        else:
+            out["other"] += ms
+    for k in ("k1", "k2", "k3"):
+        out[k] = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and PROFILE_NAMES[k] in e.key)
+    return out
+
+
+def run_sd_components(trees: dict) -> dict:
+    """Phase 12(b): the SD-class components at the released widths on the
+    card with seeded released-layout weights (held in bf16 where they
+    compute in bf16), each call cold (its first) and warm, between CUDA
+    syncs: the text encoder, the VAE at 256^2, one UNet forward (the
+    completion's batch of 3 at 32^2 latents), InvSR on a 512^2 image, the
+    completion of one 512^2 crop with ISNet at 1024^2, one Zero123 view
+    and the elevation estimate (4 views, 4 tiny-matcher forwards); then a
+    traced warm pass of InvSR, the completion and the estimate."""
+    import numpy as np
+    import torch
+
+    from labelany3d_tpu_torch.models.diffusion import AmodalCompletion, InvSREnhance
+    from labelany3d_tpu_torch.models.saliency import RembgSegmenter
+    from labelany3d_tpu_torch.ops import reciprocal_nn as rnn
+    from labelany3d_tpu_torch.pipeline.backends import make_elevation
+
+    counters, plains = kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    enh = InvSREnhance(device="cuda").set_params(
+        {"unet": trees["unet4"], "vae": trees["vae"], "text": trees["text"]})
+    comp = AmodalCompletion(segmenter=RembgSegmenter(params=trees["isnet"], device="cuda"),
+                            device="cuda").set_params(
+        {"unet": trees["unet8"], "vae": trees["vae"], "text": trees["text"]})
+    est = make_elevation("zero123", device="cuda")
+    nv = est.novel_views
+    nv.set_params(trees["zero123"])
+    for p in (enh, comp, nv):
+        p.init_params()
+    comp.segmenter._ensure()
+    torch.cuda.synchronize()
+    res = {"init_s": time.perf_counter() - t0, "cold_s": {}, "warm_s": {}}
+    rng = np.random.default_rng(12)
+    img = rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
+    crop = trellis_crop(12, SD_CROP)
+    x256 = torch.tensor(rng.uniform(-1, 1, (1, 256, 256, 3)), dtype=torch.float32,
+                        device="cuda")
+    lat = torch.randn(3, 32, 32, 8, device="cuda")
+    tt = torch.full((3,), 0.5, device="cuda")
+    outs = {}
+
+    def timed(name, fn, cold_arg=None, warm_arg=None):
+        for phase, arg in (("cold_s", cold_arg), ("warm_s", warm_arg)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with torch.inference_mode():
+                outs[name] = fn() if arg is None else fn(arg)
+            torch.cuda.synchronize()
+            res[phase][name] = time.perf_counter() - t
+
+    timed("text_embed", comp.text.embed, "a chair", "a table")
+    ctx = comp.text.embed("a chair").expand(3, -1, -1)
+    timed("vae_encode", lambda: enh.vae.encode(x256))
+    timed("vae_decode", lambda: enh.vae.decode(outs["vae_encode"]))
+    timed("unet_forward", lambda: comp.unet(lat, tt, ctx))
+    timed("enhance", lambda: enh.enhance(img))
+    timed("complete", lambda: comp.complete(crop, "chair"))
+    timed("generate", lambda: nv.generate(crop, 10.0, 0.0, seed=0))
+    for k in (*counters.values(), *plains.values()):
+        k.reset()
+    rnn.LAUNCHES_BY_SHAPE.clear()
+    timed("estimate", lambda: est.estimate(outs["complete"]))
+    res["launches"] = {k: v.count for k, v in counters.items()}
+    res["plain_calls"] = {k: v.count for k, v in plains.items()}
+    res["k3_by_shape"] = dict(rnn.LAUNCHES_BY_SHAPE)
+    # The cold and warm estimates: 4 tiny-matcher forwards each.
+    res["want"] = {**matcher_launches(est.pair_matcher.matcher.cfg, 8), "k4": 0}
+    res["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["shapes"] = {k: list(v.shape) for k, v in outs.items() if hasattr(v, "shape")}
+    res["elevation"] = outs["estimate"]
+
+    def warm():
+        with torch.inference_mode():
+            return enh.enhance(img), comp.complete(crop, "chair"), est.estimate(outs["complete"])
+
+    t = time.perf_counter()
+    warm()
+    torch.cuda.synchronize()
+    res["pass_s"] = time.perf_counter() - t
+    # The pass traced on the device only (host-op tracing of its ~10^5
+    # eager ops takes minutes); one warm UNet forward traced with its host
+    # ops, for the device time by the op that launched it.
+    prof = profile_pass(warm, host=False)
+    res["profile"] = {k: prof[k] for k in ("device_ms", "wall_ms", "top_device", "k1_ms",
+                                            "k2_ms", "k3_ms")}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as unet_prof, torch.inference_mode():
+        comp.unet(lat, tt, ctx)
+        torch.cuda.synchronize()
+    res["profile"]["unet_forward_by_op_ms"] = device_ms_by_op(unet_prof)
+    dev = prof["device_ms"]
+    res["idle_share"] = 1.0 - dev / (res["pass_s"] * 1e3) if dev > 0 else "not measured"
+    unet_out = outs["unet_forward"]
+    res["ok"] = (res["launches"] == res["want"] and not any(res["plain_calls"].values())
+                 and k3_launches(res["k3_by_shape"], 1, ELEVATION_STARTS) == res["want"]["k3"]
+                 and bool(torch.isfinite(unet_out).all())
+                 and res["shapes"]["enhance"] == [2048, 2048, 3]
+                 and res["shapes"]["complete"] == [SD_CROP, SD_CROP, 4]
+                 and res["shapes"]["generate"] == [256, 256, 3]
+                 and -80.0 <= res["elevation"] <= 80.0)
+    del enh, comp, est, nv, outs
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_sd_route_outputs(save_dir: str, loader) -> dict:
+    """Every scene of the reference route has its 4x enhanced image, and
+    each object its completed 512-px RGBA crop and a finite elevation on
+    the estimator's grid."""
+    import numpy as np
+
+    from labelany3d_tpu_torch.pipeline.scene import SceneDir, scene_dir_name
+    from labelany3d_tpu_torch.utils.png import read_png
+
+    sizes, objects, bad = set(), 0, []
+    for info in loader.images:
+        sd = SceneDir(os.path.join(save_dir, "val", scene_dir_name(info["file_name"])))
+        sizes.add(png_size(sd.enhanced_image) if sd.enhanced_image.exists() else None)
+        for obj_id in sd.list_crop_ids():
+            objects += 1
+            rgba = read_png(sd.crop_completed(obj_id)) if sd.crop_completed(obj_id).exists() \
+                else None
+            elev = float(np.load(sd.elevation(obj_id))) if sd.elevation(obj_id).exists() \
+                else float("nan")
+            if (rgba is None or rgba.shape != (SD_CROP, SD_CROP, 4) or rgba.dtype != np.uint8
+                    or not -80.0 <= elev <= 80.0):
+                bad.append(f"{info['id']}:{obj_id}")
+    want = (ENHANCE_FACTOR * IMAGE_HW[0], ENHANCE_FACTOR * IMAGE_HW[1])
+    return {"enhanced_hw": sorted(map(str, sizes)), "objects": objects, "bad": bad,
+            "ok": sizes == {want} and objects == SD_IMAGES * SD_INSTANCES and not bad}
+
+
+def run_reference_route(tmp: str) -> dict:
+    """Phase 12(c): `run_stages("all", ...)`
+    at the reference's configuration, run.enhance=invsr,
+    run.amodal_completion=our, run.elevation=zero123 and run.obj_rec=trellis,
+    over 2 synthetic images with 2 objects each; every generative backend
+    from the registry's factories at its released widths with its default
+    (random) initialisation, whose zero-initialised UNet and flow output
+    layers (as the JAX package's) make DDIM only rescale its noise and
+    TRELLIS's meshes empty; the layout stage then skips them, so no scene
+    has boxes. Depth at the `large` preset, the layout's matcher
+    `MatcherConfig()`; the elevation estimator runs its own tiny matcher
+    (K1 and K2 at head dim 32, K3)."""
+    import torch
+
+    from labelany3d_tpu_torch.data.meshio import load_glb
+    from labelany3d_tpu_torch.pipeline.backends import TorchMatcherBackend, default_registry
+    from labelany3d_tpu_torch.pipeline.config import PipelineConfig
+    from labelany3d_tpu_torch.pipeline.runner import run_stages
+    from labelany3d_tpu_torch.pipeline.scene import SceneDir, scene_dir_name
+    from labelany3d_tpu_torch.pipeline.stages.common import ArrayImageSource
+    from labelany3d_tpu_torch.utils.profiling import StageTimer
+
+    cfg = PipelineConfig(bbox_method="minarea_pallas")
+    loader = SyntheticLoader(SD_IMAGES, IMAGE_HW, seed=11, min_inst=SD_INSTANCES,
+                             max_inst=SD_INSTANCES)
+    backend = default_registry().get("depth", preset="large", pin_hw=cfg.bucket_sizes()[0],
+                                     device="cuda", seed=cfg.seed)
+    matcher = TorchMatcherBackend(tiny=False, seed=cfg.seed, device="cuda")
+    from labelany3d_tpu_torch.ops import reciprocal_nn as rnn
+
+    counters, plains = kernel_counters()
+    for k in (*counters.values(), *plains.values()):
+        k.reset()
+    rnn.LAUNCHES_BY_SHAPE.clear()
+    torch.cuda.reset_peak_memory_stats()
+    out_dir, stages, timer = os.path.join(tmp, "reference_all"), {}, StageTimer()
+    t0 = time.perf_counter()
+    run_stages("all", cfg, loader, ArrayImageSource(loader.pixels), out_dir, "val", 0,
+               SD_IMAGES, backend=backend, matcher=matcher,
+               run_options={"enhance": "invsr", "amodal_completion": "our",
+                            "elevation": "zero123", "obj_rec": "trellis"},
+               device="cuda", timer=timer, stages=stages)
+    torch.cuda.synchronize()
+    est = stages["elevation"].backend
+    res = {"s": time.perf_counter() - t0,
+           "stage_s": {k: timer.stats[k].total_seconds for k in ALL_STAGES},
+           "launches": {k: v.count for k, v in counters.items()},
+           "plain_calls": {k: v.count for k, v in plains.items()},
+           "failures": list(stages["layout"].failures), "forwards": matcher.forwards,
+           "elevation_forwards": est.pair_matcher.matcher.forwards,
+           "k3_by_shape": dict(rnn.LAUNCHES_BY_SHAPE),
+           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    glbs, with_boxes, depths = [], set(), 0
+    for info in loader.images:
+        name = scene_dir_name(info["file_name"])
+        sd = SceneDir(os.path.join(out_dir, "val", name))
+        glbs += [load_glb(sd.object_mesh(i)) for i in sd.list_crop_ids()
+                 if sd.object_mesh(i).exists()]
+        depths += sd.depth_map.exists()
+        if sd.bbox3d.exists() and sd.read_bbox3d():
+            with_boxes.add(name)
+    res["glbs"], res["empty_glbs"] = len(glbs), sum(m.is_empty for m in glbs)
+    with open(os.path.join(out_dir, "COCO3D_val.json")) as f:
+        listed = {os.path.basename(im["file_path"]).rsplit(".", 1)[0]
+                  for im in json.load(f)["images"]}
+    res["scenes_with_boxes"], res["coco3d_images"] = sorted(with_boxes), sorted(listed)
+    res["stages_2_to_5"] = check_sd_route_outputs(out_dir, loader)
+    k1, k2 = trellis_launches(stages["reconstruction"].backend.cfg)
+    n = res["glbs"]
+    elev = matcher_launches(est.pair_matcher.matcher.cfg, res["elevation_forwards"])
+    layout = matcher_launches(matcher.cfg, res["forwards"])
+    depth_k1 = (-(-SD_IMAGES // cfg.batch_size)
+                * (backend.moge_cfg.backbone.depth + backend.dp_cfg.backbone.depth))
+    res["want"] = {"k1": depth_k1 + k1 * n + elev["k1"] + layout["k1"],
+                   "k2": k2 * n + elev["k2"] + layout["k2"],
+                   "k3": elev["k3"] + layout["k3"], "k4": 0}
+    res["ok"] = (res["launches"] == res["want"] and not any(res["plain_calls"].values())
+                 and not res["failures"] and n == SD_IMAGES * SD_INSTANCES
+                 and res["elevation_forwards"] == 4 * n
+                 and k3_launches(res["k3_by_shape"], 1, ELEVATION_STARTS) == elev["k3"]
+                 and depths == SD_IMAGES and with_boxes == listed
+                 and res["stages_2_to_5"]["ok"])
+    del stages, backend, matcher, est
+    torch.cuda.empty_cache()
+    return res
+
+
+def sd_card_vs_cpu(seed: int = 70) -> dict:
+    """Phase 12(d): the tiny SD configs in float32 with seeded
+    released-layout weights (through the converters) on the card and on the
+    CPU, from the same inputs and draws: a UNet forward (8 input channels),
+    a VAE encode and decode, one amodal completion and one Zero123 view at
+    the tiny factories' 64 px. Relative L2 of each, of the two samplers'
+    float images before their 8-bit truncation, the largest 8-bit
+    difference, and the card's images' spread and saturated share."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from labelany3d_tpu_torch.models.clip import CLIPVisionConfig, convert_clip_text
+    from labelany3d_tpu_torch.models.diffusion import (
+        AmodalCompletion,
+        TextConditioner,
+        UNet2D,
+        UNetConfig,
+        Zero123NovelView,
+    )
+    from labelany3d_tpu_torch.models.diffusion.convert import (
+        convert_sd_unet,
+        convert_sd_vae,
+        convert_zero123,
+    )
+    from labelany3d_tpu_torch.models.diffusion.vae import AutoencoderKL, VAEConfig
+    from labelany3d_tpu_torch.models.weights import flax_to_state_dict
+
+    f32 = torch.float32
+    ucfg = UNetConfig.tiny_test(dtype=f32, in_channels=8)
+    vcfg = VAEConfig.tiny_test(dtype=f32)
+    state4 = released_sd_unet_state(dataclasses.replace(ucfg, in_channels=4), seed, std=0.1)
+    unet = convert_sd_unet(with_conv_in(state4, 8, seed + 1), ucfg)
+    vae = convert_sd_vae(released_sd_vae_state(vcfg, seed + 2, std=0.1), vcfg)
+    tcfg = TextConditioner.for_context_dim(ucfg.context_dim, device="cpu").cfg
+    text = convert_clip_text(released_clip_text_state(tcfg, seed + 3, std=0.1), tcfg)
+    viscfg = CLIPVisionConfig.tiny_test()
+    z = convert_zero123(None, vision_state=released_clip_vision_state(viscfg, seed + 4, std=0.1),
+                        cc_state=released_cc_state(viscfg.projection_dim, ucfg.context_dim,
+                                                   seed + 5, std=0.1), vision_cfg=viscfg)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((2, 16, 16, 8)).astype(np.float32))
+    t = torch.tensor([0.3, 0.9])
+    ctx = torch.from_numpy(rng.standard_normal((2, 5, ucfg.context_dim)).astype(np.float32))
+    img = torch.from_numpy(rng.uniform(-1, 1, (1, 64, 64, 3)).astype(np.float32))
+    crop = trellis_crop(seed, 96)
+    noise = rng.standard_normal((1, 32, 32, 4)).astype(np.float32)
+    out = {}
+
+    def recording_decode(pipe, key):
+        """`pipe` with its VAE decode recording the float image it returns,
+        before the pipeline clamps it and truncates it to 8 bits."""
+        pipe.init_params()
+        dec = pipe.vae.decode
+
+        def decode(z):
+            y = dec(z)
+            out[d][key] = y.float().cpu()
+            return y
+
+        pipe.vae.decode = decode
+        return pipe
+
+    for d in ("cpu", "cuda"):
+        with torch.device(d):
+            um, vm = UNet2D(ucfg), AutoencoderKL(vcfg)
+        um.load_state_dict(flax_to_state_dict(unet, um))
+        vm.load_state_dict(flax_to_state_dict(vae, vm))
+        with torch.inference_mode():
+            out[d] = {"unet": um(x.to(d), t.to(d), ctx.to(d)),
+                      "vae": vm.decode(vm.encode(img.to(d)))}
+        comp = recording_decode(AmodalCompletion(tiny=True, image_size=64, device=d, dtype=f32)
+                                .set_params({"unet": unet, "vae": vae, "text": text}),
+                                "complete_float")
+        out[d]["complete"] = torch.from_numpy(comp.complete(crop, "chair", noise=noise))
+        nv = recording_decode(Zero123NovelView(tiny=True, image_size=64, device=d, dtype=f32)
+                              .set_params({"unet": unet, "vae": vae, **z}), "generate_float")
+        out[d]["generate"] = torch.from_numpy(nv.generate(crop, 10.0, -10.0, noise=noise))
+    res = {}
+    for name in ("unet", "vae", "complete", "generate", "complete_float", "generate_float"):
+        a, b = out["cuda"][name].float().cpu(), out["cpu"][name].float()
+        res[name] = float((a - b).norm() / b.norm())
+        if name in ("complete", "generate"):
+            res[f"{name}_max_levels"] = float((a - b).abs().max())
+            # The card's 8-bit RGB must have content: a clamped or flat image
+            # would agree with the CPU's whatever the port computed.
+            rgb = a[..., :3]
+            res[f"{name}_std_levels"] = float(rgb.std())
+            res[f"{name}_saturated_share"] = float(((rgb == 0) | (rgb == 255)).float().mean())
+    res["ok"] = (res["unet"] <= SD_REL_TOL and res["vae"] <= SD_REL_TOL
+                 and res["complete"] <= SD_IMAGE_REL_TOL and res["generate"] <= SD_IMAGE_REL_TOL
+                 and res["complete_float"] <= SD_SAMPLE_REL_TOL
+                 and res["generate_float"] <= SD_SAMPLE_REL_TOL
+                 and all(res[f"{n}_std_levels"] >= SD_MIN_STD_LEVELS
+                         and res[f"{n}_saturated_share"] <= SD_MAX_SATURATED
+                         for n in ("complete", "generate")))
+    return res
+
+
+def run_sd(tmp: str) -> dict:
+    """Phase 12: weights, (b) the components, (c) the reference route, (d)
+    card against CPU; prints each part's lines ((a), the kernels at head
+    dim 32, is in phases 3 and 4). Returns the three results."""
+    t0 = time.perf_counter()
+    trees, n_params = sd_weights()
+    _say("sd:weights", s=time.perf_counter() - t0, parameters=n_params)
+    comp = run_sd_components(trees)
+    del trees
+    _say("sd:components", init_s=comp["init_s"], cold_s=json.dumps(comp["cold_s"]),
+         warm_s=json.dumps(comp["warm_s"]), launches=json.dumps(comp["launches"]),
+         want=json.dumps(comp["want"]), plain_calls=json.dumps(comp["plain_calls"]),
+         k3_launches_by_shape=k3_shapes_json(comp["k3_by_shape"]),
+         shapes=json.dumps(comp["shapes"]), elevation=comp["elevation"],
+         max_memory_gb=comp["max_memory_gb"])
+    p = comp["profile"]
+    _say("sd:profile", pass_s=comp["pass_s"], device_ms=p["device_ms"],
+         traced_wall_ms=p["wall_ms"], k1_device_ms=p["k1_ms"], k2_device_ms=p["k2_ms"],
+         k3_device_ms=p["k3_ms"], idle_share_of_warm_pass=comp["idle_share"],
+         top_device=json.dumps(p["top_device"]),
+         unet_forward_by_op_ms=json.dumps(p["unet_forward_by_op_ms"]))
+    if not comp["ok"]:
+        raise SystemExit("sd components: launches, plain calls, shapes or the elevation are "
+                         "not as required (see sd:components)")
+    route = run_reference_route(tmp)
+    _say("sd:route", s=route["s"], stage_s=json.dumps(route["stage_s"]),
+         launches=json.dumps(route["launches"]), want=json.dumps(route["want"]),
+         plain_calls=json.dumps(route["plain_calls"]), failures=json.dumps(route["failures"]),
+         glbs=route["glbs"], empty_glbs=route["empty_glbs"], forwards=route["forwards"],
+         elevation_forwards=route["elevation_forwards"],
+         k3_launches_by_shape=k3_shapes_json(route["k3_by_shape"]),
+         stages_2_to_5=json.dumps(route["stages_2_to_5"]),
+         scenes_with_boxes=json.dumps(route["scenes_with_boxes"]),
+         coco3d_images=json.dumps(route["coco3d_images"]), max_memory_gb=route["max_memory_gb"])
+    if not route["ok"]:
+        raise SystemExit("reference route: launches, plain calls, failures, stage 2-5 "
+                         "artifacts, GLBs or COCO3D are not as required (see sd:route)")
+    check = sd_card_vs_cpu()
+    _say("sd:card_vs_cpu", **check, rel_tol=SD_REL_TOL, image_rel_tol=SD_IMAGE_REL_TOL,
+         sample_rel_tol=SD_SAMPLE_REL_TOL, min_std_levels=SD_MIN_STD_LEVELS,
+         max_saturated_share=SD_MAX_SATURATED)
+    if not check["ok"]:
+        raise SystemExit("sd: the card disagrees with the CPU (see sd:card_vs_cpu)")
     return {"components": comp, "route": route, "card_vs_cpu": check}
 
 
@@ -1774,10 +2468,13 @@ def main() -> int:
               "depth_pro35_image": dict(b=8, n_pad=640, n_real=577, heads=16, d=64),
               # TRELLIS's DINOv2 ViT-L/14 with 4 registers at 518^2: 1 + 4 +
               # 37^2 tokens, one object at a time.
-              "trellis_cond": dict(b=1, n_pad=1408, n_real=1374, heads=16, d=64)}
+              "trellis_cond": dict(b=1, n_pad=1408, n_real=1374, heads=16, d=64),
+              # Stage 5's elevation matcher (tiny: width 64, 2 heads of 32)
+              # over a pair of 256^2 Zero123 views: 1 + 32^2 tokens.
+              "elevation_matcher": dict(b=2, n_pad=1152, n_real=1025, heads=2, d=32)}
     k1 = {}
     for i, (name, shape) in enumerate(shapes.items()):
-        k1[name] = check_attention(shape, seed=i)
+        k1[name] = check_attention(shape, seed=i, graph=name == "elevation_matcher")
         _say(f"K1:{name}", **k1[name], max_abs_tol=K1_MAX_ABS_TOL, rel_tol=K1_REL_TOL)
     nan = check_attention(shapes["moge"], seed=7, nan_pad=True)
     _say("K1:nan_pad", **nan, max_abs_tol=K1_MAX_ABS_TOL, rel_tol=K1_REL_TOL)
@@ -1884,9 +2581,12 @@ def main() -> int:
         _say("reference:weights", s=time.perf_counter() - t0,
              parameters=json.dumps(n_params))
         mp = weights.pop("matcher")
+        # Its traced pass records the device only, as phases 7 and 10 do:
+        # host-op tracing of a chain pass costs minutes (phase 6 lists host ops).
         ref = run_registration({}, tmp, name="ref",
                                depth_kw={"preset": "vitl_reference", **weights},
-                               matcher_cfg=MatcherConfig.mast3r_vitl(), matcher_params=mp)
+                               matcher_cfg=MatcherConfig.mast3r_vitl(), matcher_params=mp,
+                               trace_host=False)
         del weights, mp
         _say("reference:cold", s=ref["cold_s"], forwards=ref["forwards"],
              launches=json.dumps(ref["launches"]), want=json.dumps(ref["want"]),
@@ -1901,7 +2601,7 @@ def main() -> int:
              traced_wall_ms=p8["wall_ms"],
              **{f"{k}_device_ms": p8[f"{k}_ms"] for k in PROFILE_NAMES},
              **{f"{k}_device_events": p8[f"{k}_events"] for k in PROFILE_NAMES},
-             top_device=json.dumps(p8["top_device"]), top_host=json.dumps(p8["top_host"]))
+             top_device=json.dumps(p8["top_device"]))
         _say("reference:idle_share", of_warm_pass=ref["idle_share"])
         # DepthPro35's head alone holds 8 x 1536^2 x 128 bf16 after its
         # transposed convolution.
@@ -1950,9 +2650,16 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         # 11. TRELLIS, stage 6's obj_rec=trellis: the components at full
-        # width on one object, the all route, the card against the CPU.
+        # width on one object, the card against the CPU.
         trel = run_trellis(tmp)
-        tcomp, troute = trel["components"], trel["route"]
+        tcomp = trel["components"]
+        torch.cuda.empty_cache()
+
+        # 12. The SD-class stack (stages 2, 4 and 5 at invsr, our, zero123):
+        # the components at full width, the all route at the reference's
+        # configuration (with obj_rec=trellis), the card against the CPU.
+        sd = run_sd(tmp)
+        scomp, sroute = sd["components"], sd["route"]
 
     def row(name, source, replaces, launches, r, max_abs_err, **extra):
         return {"name": name, "route": "cuda", "source": f"labelany3d_tpu_torch/csrc/{source}",
@@ -1960,12 +2667,14 @@ def main() -> int:
                 **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                 **extra}
 
-    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ratio_to_library",
-             "share_of_bound")
+    k3_timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ratio_to_library",
+                "share_of_bound")
+    timed = (*k3_timed, "graph_ms", "library_graph_ms")
     design = ("attention_sm90.cuh: 192-query blocks of three consumer warpgroups and a "
               "TMA producer warpgroup (setmaxnreg 160/24), 128-key K/V tiles in a 4-stage "
-              "mbarrier ring, wgmma m64n128k16 QK^T and m64n64k16 PV with P from "
-              "registers, online softmax in fp32, TMA store")
+              "mbarrier ring, wgmma m64n128k16 QK^T and m64n{d}k16 PV with P from "
+              "registers, online softmax in fp32, TMA store; head dim d = 64 (128-byte "
+              "swizzle) or 32 (64-byte swizzle) as a template parameter")
 
     k2, k3, k4 = kc["k2"], kc["k3"], kc["k4"]
     table = {"kernels": [
@@ -1976,31 +2685,35 @@ def main() -> int:
             launches_boxes_route=box["launches"]["k1"],
             launches_all_route=allr["launches"]["k1"],
             launches_trellis_object=tcomp["launches"]["k1"],
-            launches_trellis_route=troute["launches"]["k1"],
+            launches_reference_route=sroute["launches"]["k1"],
+            launches_elevation_estimates=scomp["launches"]["k1"],
             shape="MoGe B=8 Npad=1408 n_real=1297 H=16 d=64", design=design,
             ratio_to_library=k1["moge"]["ratio_to_library"],
             share_of_bound=k1["moge"]["share_of_bound"], sass=sass["k1"],
-            **{name: {k: k1[name][k] for k in timed}
+            **{name: {k: k1[name][k] for k in timed if k in k1[name]}
                for name in ("depth_pro", "matcher", "depth_pro35_patch",
-                            "depth_pro35_image", "trellis_cond")}),
+                            "depth_pro35_image", "trellis_cond", "elevation_matcher")}),
         row("flash_attention", "flash_attention.cu", "labelany3d_tpu/ops/attention.py:42",
             reg["launches"]["k2"], k2["path"], max(r["max_abs_err"] for r in k2.values()),
             launches_reference_chain=ref["launches"]["k2"],
             launches_all_route=allr["launches"]["k2"],
             launches_trellis_object=tcomp["launches"]["k2"],
-            launches_trellis_route=troute["launches"]["k2"],
+            launches_reference_route=sroute["launches"]["k2"],
+            launches_elevation_estimates=scomp["launches"]["k2"],
             shape="q, k, v (32, 1296, 12, 64) bf16", design=design,
             ratio_to_library=k2["path"]["ratio_to_library"],
             share_of_bound=k2["path"]["share_of_bound"], sass=sass["k2"],
-            **{name: {k: k2[name][k] for k in timed}
+            **{name: {k: k2[name][k] for k in timed if k in k2[name]}
                for name in ("rope_encoder", "rope_encoder_stage_b", "decoder_1024",
                             "stage_b_1024", "trellis_ss_self", "trellis_ss_cross",
                             "trellis_slat_self", "trellis_slat_cross",
-                            "trellis_slat_self_unmasked")}),
+                            "trellis_slat_self_unmasked", "elevation_decoder")}),
         row("nn_argmax", "nn_argmax.cu", "labelany3d_tpu/ops/reciprocal_nn.py:29",
             reg["launches"]["k3"], k3["path_bf16"], max(r["max_abs_err"] for r in k3.values()),
             launches_reference_chain=ref["launches"]["k3"],
             launches_all_route=allr["launches"]["k3"],
+            launches_reference_route=sroute["launches"]["k3"],
+            launches_elevation_estimates=scomp["launches"]["k3"],
             shape="query (32, 4096, 24) x bank (32, 262144, 24), bf16 operands",
             design=NN_DESIGN, sass=sass["k3"], share_of_bound=k3["path_bf16"]["share_of_bound"],
             library="none at 32 x 4096 (a 68 GB score matrix); see compact and one_pair",
@@ -2009,14 +2722,24 @@ def main() -> int:
             launches_at_shape=k3_launches(reg["k3_by_shape"], STAGE_A_PAIRS, 4096),
             launches_by_shape=json.loads(k3_shapes_json(reg["k3_by_shape"])),
             **{name: {"launches_at_shape": k3_launches(reg["k3_by_shape"], *at),
-                      **{k: k3[key].get(k) for k in timed}}
+                      **{k: k3[key].get(k) for k in k3_timed}}
                for name, key, at in (
                    ("compact", "compact_bf16", (STAGE_A_PAIRS, 1024)),
                    ("bf16x3", "path_bf16x3", (STAGE_A_PAIRS, 4096, "bf16x3")),
                    ("stage_b_path", "stage_b_path_bf16", (4, 4096)),
                    ("stage_b_compact", "stage_b_compact_bf16", (4, 1024)),
                    ("one_pair", "one_pair_bf16", (1, 4096)),
-                   ("one_pair_bf16x3", "one_pair_bf16x3", (1, 4096, "bf16x3")))}),
+                   ("one_pair_bf16x3", "one_pair_bf16x3", (1, 4096, "bf16x3")))},
+            # Stage 5's elevation matcher: launches at this shape in the
+            # reference route (12(c)) and the components' estimates (12(b)).
+            elevation={"launches_reference_route": k3_launches(
+                           sroute["k3_by_shape"], 1, ELEVATION_STARTS),
+                       "launches_elevation_estimates": k3_launches(
+                           scomp["k3_by_shape"], 1, ELEVATION_STARTS),
+                       "shape": f"query (1, {ELEVATION_STARTS}, {ELEVATION_DESC}) x bank "
+                                f"(1, {ELEVATION_VIEW ** 2}, {ELEVATION_DESC}), bf16 operands",
+                       "max_abs_err": k3["elevation_bf16"]["max_abs_err"],
+                       **{k: k3["elevation_bf16"][k] for k in timed}}),
         row("yaw_minarea", "yaw_minarea.cu", "labelany3d_tpu/ops/boxfit_pallas.py:54",
             reg["launches"]["k4"], k4["layout"], max(r["max_abs_err"] for r in k4.values()),
             launches_reference_chain=ref["launches"]["k4"],

@@ -6,7 +6,7 @@
 // loaded from and stored to. Everything else -- the pipeline, both
 // products, the softmax, the masking and the epilogue -- is here, once.
 //
-// The function, for head dim 64 in bf16: O = softmax(Q K^T / sqrt(d)) V
+// The function, for head dim 64 or 32 in bf16: O = softmax(Q K^T / sqrt(d)) V
 // with fp32 scores, an fp32 softmax and fp32 accumulation; P is rounded to
 // bf16 before the PV product, as on the TPU. Keys at or past `n_keys`, and
 // (K2) keys whose segment id is non-zero, are masked: their scores are -inf
@@ -26,27 +26,33 @@
 //     the consumers get 160, issues every load from one thread. 512
 //     threads, one block an SM. In the last query tile, warpgroups whose
 //     rows all lie past the end leave at once.
-//   * Loads: TMA. Q once (192 x 64 bf16, 24 KB); K and V tiles of 128 keys
-//     (16 KB each) through a ring of kStages = 4 stages with a full and an
-//     empty mbarrier per stage (152 KB of shared memory in all), so the
-//     loads of the next tiles overlap this tile's products. The tensor maps
-//     use the 128-byte swizzle that wgmma reads without bank conflicts, and
-//     clip at the sequence ends: keys and query rows past the end arrive as
-//     zeros and stores past it are dropped, so no thread ever computes a
-//     bound on a load.
+//   * Loads: TMA. Q once (192 x d bf16, 24 KB at d = 64); K and V tiles of
+//     128 keys (16 KB each at d = 64) through a ring of kStages = 4 stages
+//     with a full and an empty mbarrier per stage (152 KB of shared memory
+//     in all at d = 64, 78 KB at d = 32), so the loads of the next tiles
+//     overlap this tile's products. A row of d bf16 is one swizzle row: the
+//     tensor maps use the 128-byte swizzle at d = 64 and the 64-byte one at
+//     d = 32, which wgmma reads without bank conflicts, and clip at the
+//     sequence ends: keys and query rows past the end arrive as zeros and
+//     stores past it are dropped, so no thread ever computes a bound on a
+//     load.
 //   * S = Q K^T: wgmma m64n128k16, both operands K-major from shared
-//     memory, four k-steps over d = 64.
+//     memory, d / 16 k-steps (four at d = 64, two at d = 32).
 //   * Softmax: online, in fp32 registers, in the log2 domain (one FFMA and
 //     one ex2 per score), with tree reductions; only the last key tile, or
 //     every tile when segment ids are given, is masked. A row whose keys are
 //     all masked so far keeps finite exp2 arguments and ends as zeros.
-//   * O += P V: wgmma m64n64k16 with P as the A operand from registers (the
+//   * O += P V: wgmma m64n{d}k16 with P as the A operand from registers (the
 //     accumulator layout of S, packed to bf16, is the A-fragment layout) and
 //     V read as an MN-major B operand (transpose bit), so nothing
 //     transposes V. PV of tile t and QK^T of tile t + 1 go out as one block.
 //   * Epilogue: O / l rounded to bf16 into the warpgroup's 64 rows of the Q
 //     tile (same swizzle), then one TMA store per warpgroup, which clips
 //     rows past the end.
+//
+// The head dim is a template parameter (Tiles<D>, D = 64 or 32); a
+// Loader names its own (Loader::kHeadDim). At d = 32 the matcher's tiny
+// ViT and decoder (stage 5's elevation matcher) take the same loop.
 //
 // What was tried and left out: two consumer warpgroups of 128-query blocks
 // (fewer warps to hide the softmax's latencies, and 8.6% more padded work
@@ -70,7 +76,6 @@ using namespace sm90;
 constexpr int kConsumerWGs = 3;              // consumer warpgroups, 64 rows each
 constexpr int kBlockM = 64 * kConsumerWGs;   // query rows per block
 constexpr int kBlockN = 128;                 // keys per tile
-constexpr int kHeadDim = 64;
 constexpr int kStages = 4;                   // K/V ring depth
 constexpr int kConsumers = 128 * kConsumerWGs;
 constexpr int kThreads = kConsumers + 128;   // + the producer warpgroup
@@ -78,16 +83,46 @@ constexpr int kThreads = kConsumers + 128;   // + the producer warpgroup
 // consumers (setmaxnreg): 128 x 24 + 384 x 160 <= 65536.
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 160;
-constexpr int kRowBytes = kHeadDim * 2;             // 128: one swizzle row
-constexpr int kQBytes = kBlockM * kRowBytes;        // the Q tile
-constexpr int kTileBytes = kBlockN * kRowBytes;     // one K or V tile
 // Named barriers (0 is __syncthreads): 1 + wg ends warpgroup wg's
 // epilogue; kZeroV follows the zeroing of masked V rows.
 constexpr int kZeroV = 1 + kConsumerWGs;
-// Q, then K[kStages], then V[kStages], then the barriers; plus slack to
-// align the base to the 1024-byte period of the 128-byte swizzle.
 constexpr int kBarrierBytes = 8 * (2 * kStages + 1);
-constexpr int kSmemBytes = kQBytes + 2 * kStages * kTileBytes + kBarrierBytes + 1024;
+
+// The sizes that follow from the head dim D (64 or 32).
+template <int D>
+struct Tiles {
+  static_assert(D == 64 || D == 32, "the attention loop takes head dim 64 or 32");
+  static constexpr int kHeadDim = D;
+  static constexpr int kRowBytes = D * 2;             // 128 or 64: one swizzle row
+  static constexpr int kChunks = kRowBytes / 16;      // 16-byte chunks a row
+  static constexpr int kQBytes = kBlockM * kRowBytes;        // the Q tile
+  static constexpr int kTileBytes = kBlockN * kRowBytes;     // one K or V tile
+  static constexpr int kOut = D / 2;                  // O accumulators a thread
+  // Q, then K[kStages], then V[kStages], then the barriers; plus slack to
+  // align the base to 1024 bytes (the 128-byte swizzle's period; the
+  // 64-byte one repeats every 512).
+  static constexpr int kSmemBytes = kQBytes + 2 * kStages * kTileBytes + kBarrierBytes + 1024;
+
+  // The wgmma descriptor of a tile written by TMA with this swizzle.
+  static __device__ __forceinline__ uint64_t desc(uint32_t addr) {
+    if constexpr (D == 64) {
+      return sw128_desc(addr);
+    } else {
+      return sw64_desc(addr);
+    }
+  }
+  // The swizzled 16-byte chunk of chunk j in a row whose index mod 8 is
+  // r: the 128-byte swizzle XORs address bits 7-9 (the row mod 8) into
+  // bits 4-6; the 64-byte one bits 7-8 (the row / 2 mod 4) into bits 4-5.
+  static __device__ __forceinline__ uint32_t chunk(int j, int r) {
+    return D == 64 ? (j ^ r) : (j ^ ((r >> 1) & 3));
+  }
+};
+
+// The host's tensor-map swizzle for head dim D.
+template <int D>
+constexpr CUtensorMapSwizzle kSwizzle = D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                                : CU_TENSOR_MAP_SWIZZLE_64B;
 
 // ---------------------------------------------------------------- PTX ---
 
@@ -174,6 +209,21 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0, 
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+// D (64 x 32, fp32) += A (64 x 16, bf16 registers) * B (16 x 32, smem,
+// MN-major: transpose bit set).
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], uint32_t a0, uint32_t a1,
+                                                   uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
 // Reduce v[0..15] with `op` as a tree of depth 4 (written out, so every
 // index is a constant and v stays in registers).
 template <class Op>
@@ -187,26 +237,32 @@ __device__ __forceinline__ float tree16(float (&v)[16], Op op) {
   return op(v[0], v[1]);
 }
 
-// S = Q K^T for one warpgroup: 64 x 128, four k-steps of 16 over d. Both
-// descriptors advance 32 bytes a k-step inside the swizzle atom.
+// S = Q K^T for one warpgroup: 64 x 128, D / 16 k-steps of 16 over d. Both
+// descriptors advance 32 bytes a k-step inside the swizzle row.
+template <int D>
 __device__ __forceinline__ void issue_qk(float (&sc)[64], uint64_t dq, uint64_t dk) {
   wgmma_m64n128k16_ss_first(sc, dq, dk);
 #pragma unroll
-  for (int kk = 1; kk < kHeadDim / 16; ++kk) wgmma_m64n128k16_ss(sc, dq + 2 * kk, dk + 2 * kk);
+  for (int kk = 1; kk < D / 16; ++kk) wgmma_m64n128k16_ss(sc, dq + 2 * kk, dk + 2 * kk);
 }
 
 // ----------------------------------------------------------- main loop ---
 
 // A Loader provides (all device-side, const):
+//   kHeadDim                       its head dim, 64 or 32 (a constant)
 //   n_keys, n_rows, scale_log2     keys to attend to; query rows that exist
 //   key_ids(b)                     (n_keys) int32 ids, non-zero = masked, or null
 //   prefetch()                     prefetch its tensor maps
-//   load_q(dst, bar, q0, h, b)     TMA the kBlockM x 64 Q tile at row q0
-//   load_kv(dk, dv, bar, k0, h, b) TMA the 128 x 64 K and V tiles at key k0
-//   store_o(src, row0, h, b)       TMA-store a 64 x 64 output tile at row0
+//   load_q(dst, bar, q0, h, b)     TMA the kBlockM x d Q tile at row q0
+//   load_kv(dk, dv, bar, k0, h, b) TMA the 128 x d K and V tiles at key k0
+//   store_o(src, row0, h, b)       TMA-store a 64 x d output tile at row0
 template <class Loader>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_kernel(const __grid_constant__ Loader ld) {
+  using T = Tiles<Loader::kHeadDim>;
+  constexpr int kRowBytes = T::kRowBytes;
+  constexpr int kQBytes = T::kQBytes;
+  constexpr int kTileBytes = T::kTileBytes;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base;
@@ -277,17 +333,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto zero_masked_v = [&](int kt) {
     const int k0 = kt * kBlockN;
     const uint32_t sv = sv0 + kTileBytes * (kt % kStages);
-    for (int i = threadIdx.x; i < kBlockN * 8; i += consumers) {
-      const int key = k0 + (i >> 3);
-      if (key < n_keys && ids[key] != 0) st_shared_zero16(sv + (i >> 3) * kRowBytes + (i & 7) * 16);
+    for (int i = threadIdx.x; i < kBlockN * T::kChunks; i += consumers) {
+      const int key = k0 + i / T::kChunks;
+      if (key < n_keys && ids[key] != 0) {
+        st_shared_zero16(sv + (i / T::kChunks) * kRowBytes + (i % T::kChunks) * 16);
+      }
     }
     fence_async_shared();
     named_sync(kZeroV, consumers);
   };
 
-  float o[32];
+  float o[T::kOut];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int i = 0; i < T::kOut; ++i) o[i] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};  // running max of raw scores
   float l_run[2] = {0.f, 0.f};              // this thread's part of the row sums
   float sc[64];                             // S, then P in fp32
@@ -337,7 +395,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int i = 0; i < 32; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < T::kOut; ++i) o[i] *= alpha[(i >> 1) & 1];
   };
   // The last tile needs the key-bound mask; with segment ids, every tile.
   auto softmax_tile = [&](int kt) {
@@ -348,24 +406,28 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   };
 
-  // O += P V for tile kt: eight k-steps of 16 keys.
+  // O += P V for tile kt: eight k-steps of 16 keys (16 rows of V apart).
   auto issue_pv = [&](int kt) {
-    const uint64_t dv = sw128_desc(sv0 + kTileBytes * (kt % kStages));
+    const uint64_t dv = T::desc(sv0 + kTileBytes * (kt % kStages));
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      wgmma_m64n64k16_rs(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-                         dv + (16 * kRowBytes >> 4) * kk);
+      const uint64_t db = dv + (16 * kRowBytes >> 4) * kk;
+      if constexpr (T::kHeadDim == 64) {
+        wgmma_m64n64k16_rs(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3], db);
+      } else {
+        wgmma_m64n32k16_rs(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3], db);
+      }
     }
   };
 
   // QK^T of tile 0.
   mbar_wait(q_full, 0);
   const uint32_t sq_wg = sq + wg * (kRowBytes * 64);
-  const uint64_t dq = sw128_desc(sq_wg);
+  const uint64_t dq = T::desc(sq_wg);
   mbar_wait(full0, 0);
   if (ids != nullptr) zero_masked_v(0);
   wgmma_fence();
-  issue_qk(sc, dq, sw128_desc(sk0));
+  issue_qk<T::kHeadDim>(sc, dq, T::desc(sk0));
   wgmma_commit();
   wgmma_wait_all();
   fence_regs(sc);
@@ -381,7 +443,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(o);
     wgmma_fence();
     issue_pv(kt);
-    issue_qk(sc, dq, sw128_desc(sk0 + kTileBytes * (nx % kStages)));
+    issue_qk<T::kHeadDim>(sc, dq, T::desc(sk0 + kTileBytes * (nx % kStages)));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
@@ -399,8 +461,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   mbar_arrive(empty0 + 8 * ((n_tiles - 1) % kStages));
 
   // Epilogue: O / l in bf16 into this warpgroup's 64 rows of the Q tile
-  // (its last reader was this warpgroup's final QK^T), with the 128-byte
-  // swizzle of the output tensor map, then one TMA store.
+  // (its last reader was this warpgroup's final QK^T), with the swizzle of
+  // the output tensor map, then one TMA store.
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -411,8 +473,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   const int row = (t >> 5) * 16 + g;  // row & 7 == g, as for row + 8
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const uint32_t col = ((j ^ g) << 4) + 4 * c;
+  for (int j = 0; j < T::kChunks; ++j) {
+    const uint32_t col = (T::chunk(j, g) << 4) + 4 * c;
     st_shared_b32(sq_wg + row * kRowBytes + col,
                   pack_bf16(o[4 * j] * inv[0], o[4 * j + 1] * inv[0]));
     st_shared_b32(sq_wg + (row + 8) * kRowBytes + col,
@@ -432,10 +494,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 // tens of them or more).
 template <class Loader>
 inline int launch(const Loader& ld, int q_tiles, int heads, int batch, cudaStream_t stream) {
+  constexpr int smem = Tiles<Loader::kHeadDim>::kSmemBytes;
   const cudaError_t attr = cudaFuncSetAttribute(
-      attention_kernel<Loader>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      attention_kernel<Loader>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  attention_kernel<Loader><<<dim3(q_tiles, heads, batch), kThreads, kSmemBytes, stream>>>(ld);
+  attention_kernel<Loader><<<dim3(q_tiles, heads, batch), kThreads, smem, stream>>>(ld);
   return static_cast<int>(cudaGetLastError());
 }
 

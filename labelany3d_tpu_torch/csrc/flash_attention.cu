@@ -7,7 +7,8 @@
 // against k, v (B, Sk, H, D), Sq and Sk free to differ (cross attention),
 // scale 1/sqrt(d), fp32 softmax and accumulation, and keys masked where an
 // optional (B, Sk) int32 id array is non-zero (the segment-id pad mask).
-// The output is (B, Sq, H, D), contiguous.
+// The output is (B, Sq, H, D), contiguous. D is 64 or 32 (the elevation
+// matcher's tiny decoder: 2 heads of 32).
 //
 // Design. The TPU kernel holds the whole K/V block of a head in VMEM and
 // pads both sequences to a multiple of 128. Neither carries over: a block
@@ -37,7 +38,9 @@ namespace {
 
 using namespace attn_sm90;
 
+template <int D>
 struct StridedLoader {
+  static constexpr int kHeadDim = D;
   CUtensorMap q, k, v;  // (D, H, S, B) through the torch strides
   CUtensorMap out;      // (D, H, Sq, B), contiguous
   const int* ids;       // (B, Sk), 0 = real key; or null
@@ -69,14 +72,36 @@ struct StridedLoader {
 // The map (D, H, S, B) of one (B, S, H, D) operand with element strides
 // (sb, ss, sh), read as they are: TMA takes strides in any order, and 0
 // for a broadcast dimension.
+template <int D>
 int encode_operand(CUtensorMap* map, const void* ptr, int batch, int seq, int heads,
                    long long sb, long long ss, long long sh, int box_rows) {
-  const cuuint64_t dims[4] = {kHeadDim, static_cast<cuuint64_t>(heads),
+  const cuuint64_t dims[4] = {D, static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
   const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(ss) * 2,
                                static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {kHeadDim, 1, static_cast<cuuint32_t>(box_rows), 1};
-  return encode_map(map, ptr, 4, dims, bytes, box);
+  const cuuint32_t box[4] = {D, 1, static_cast<cuuint32_t>(box_rows), 1};
+  return encode_map(map, ptr, 4, dims, bytes, box, kSwizzle<D>);
+}
+
+template <int D>
+int run(const void* q, const void* k, const void* v, void* out, const void* kv_ids, int batch,
+        int sq, int sk, int num_heads, const long long (&st)[9], float scale,
+        cudaStream_t stream) {
+  StridedLoader<D> ld;
+  const long long w = static_cast<long long>(num_heads) * D;
+  int err = encode_operand<D>(&ld.q, q, batch, sq, num_heads, st[0], st[1], st[2], kBlockM);
+  if (err == 0) err = encode_operand<D>(&ld.k, k, batch, sk, num_heads, st[3], st[4], st[5], kBlockN);
+  if (err == 0) err = encode_operand<D>(&ld.v, v, batch, sk, num_heads, st[6], st[7], st[8], kBlockN);
+  if (err == 0) {
+    // One warpgroup's 64 rows a store.
+    err = encode_operand<D>(&ld.out, out, batch, sq, num_heads, sq * w, w, D, 64);
+  }
+  if (err != 0) return err;
+  ld.ids = static_cast<const int*>(kv_ids);
+  ld.n_keys = sk;
+  ld.n_rows = sq;
+  ld.scale_log2 = scale * 1.4426950408889634f;
+  return launch(ld, (sq + kBlockM - 1) / kBlockM, num_heads, batch, stream);
 }
 
 }  // namespace
@@ -93,23 +118,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    long long k_sb, long long k_ss, long long k_sh,
                                    long long v_sb, long long v_ss, long long v_sh,
                                    float scale, void* stream) {
-  if (head_dim != kHeadDim || sq < 1 || sk < 1 || batch < 1 || num_heads < 1) {
+  if ((head_dim != 64 && head_dim != 32) || sq < 1 || sk < 1 || batch < 1 || num_heads < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  StridedLoader ld;
-  const long long w = static_cast<long long>(num_heads) * head_dim;
-  int err = encode_operand(&ld.q, q, batch, sq, num_heads, q_sb, q_ss, q_sh, kBlockM);
-  if (err == 0) err = encode_operand(&ld.k, k, batch, sk, num_heads, k_sb, k_ss, k_sh, kBlockN);
-  if (err == 0) err = encode_operand(&ld.v, v, batch, sk, num_heads, v_sb, v_ss, v_sh, kBlockN);
-  if (err == 0) {
-    // One warpgroup's 64 rows a store.
-    err = encode_operand(&ld.out, out, batch, sq, num_heads, sq * w, w, head_dim, 64);
-  }
-  if (err != 0) return err;
-  ld.ids = static_cast<const int*>(kv_ids);
-  ld.n_keys = sk;
-  ld.n_rows = sq;
-  ld.scale_log2 = scale * 1.4426950408889634f;
-  return launch(ld, (sq + kBlockM - 1) / kBlockM, num_heads, batch,
-                static_cast<cudaStream_t>(stream));
+  const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
+  const auto s = static_cast<cudaStream_t>(stream);
+  return head_dim == 64 ? run<64>(q, k, v, out, kv_ids, batch, sq, sk, num_heads, st, scale, s)
+                        : run<32>(q, k, v, out, kv_ids, batch, sq, sk, num_heads, st, scale, s);
 }

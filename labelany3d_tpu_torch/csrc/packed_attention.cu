@@ -7,7 +7,8 @@
 // column ranges [0, W), [W, 2W) and [2W, 3W) -- with keys at index >= n_real
 // masked, scale 1/sqrt(d), fp32 softmax and fp32 accumulation. Output is
 // (B, Npad, W) with head h in columns [h*d, (h+1)*d); every row is written,
-// pad rows included.
+// pad rows included. Head dim 64 (MoGe, DepthPro, the full matcher,
+// DINOv2) or 32 (the elevation matcher's tiny ViT: 2 heads of 32).
 //
 // Design. The TPU kernel keeps a whole key row (1408 keys) in VMEM and runs
 // an exact two-pass softmax; a block's shared memory holds far less, so the
@@ -16,8 +17,8 @@
 // file is that loop's loader for the packed layout:
 //   * 3-D tensor maps over the packed tensor, so q, k and v need no split
 //     or transpose pass: Q as (3W, Npad, B); K and V as (3W, n_real, B)
-//     with the batch stride of Npad rows; the head's columns h*64,
-//     W + h*64 and 2W + h*64 are TMA coordinates;
+//     with the batch stride of Npad rows; the head's columns h*d,
+//     W + h*d and 2W + h*d are TMA coordinates;
 //   * because the K/V map ends at n_real, rows >= n_real arrive as zeros:
 //     a NaN in a pad row can never reach a real output (the TPU kernel
 //     multiplies p = 0 by whatever the pad V rows hold), and the main loop
@@ -35,6 +36,9 @@
 //     -> 0.060 ms against 88.6 MB -> 0.026 ms: operations.
 //   DepthPro call (B=40, Npad=384, n_real=325): 20.4 GFLOP -> 0.021 ms
 //     against 116.1 MB -> 0.035 ms: bytes.
+//   Elevation matcher (B=2, Npad=1152, n_real=1025, H=2, d=32): 0.60 GFLOP
+//     -> 0.00061 ms against 1.11 MB -> 0.00033 ms: operations, at a size
+//     where the launch costs more than either.
 
 #include "attention_sm90.cuh"
 
@@ -42,7 +46,9 @@ namespace {
 
 using namespace attn_sm90;
 
+template <int D>
 struct PackedLoader {
+  static constexpr int kHeadDim = D;
   CUtensorMap q;    // qkv as (3W, Npad, B)
   CUtensorMap kv;   // qkv as (3W, n_real, B): rows >= n_real read as zeros
   CUtensorMap out;  // out as (W, Npad, B)
@@ -58,16 +64,44 @@ struct PackedLoader {
     prefetch_map(&out);
   }
   __device__ void load_q(uint32_t dst, uint32_t bar, int q0, int h, int b) const {
-    tma_load_3d(dst, &q, bar, h * kHeadDim, q0, b);
+    tma_load_3d(dst, &q, bar, h * D, q0, b);
   }
   __device__ void load_kv(uint32_t dk, uint32_t dv, uint32_t bar, int k0, int h, int b) const {
-    tma_load_3d(dk, &kv, bar, w + h * kHeadDim, k0, b);
-    tma_load_3d(dv, &kv, bar, 2 * w + h * kHeadDim, k0, b);
+    tma_load_3d(dk, &kv, bar, w + h * D, k0, b);
+    tma_load_3d(dv, &kv, bar, 2 * w + h * D, k0, b);
   }
   __device__ void store_o(uint32_t src, int row0, int h, int b) const {
-    tma_store_3d(&out, src, h * kHeadDim, row0, b);
+    tma_store_3d(&out, src, h * D, row0, b);
   }
 };
+
+template <int D>
+int run(const void* qkv, void* out, int batch, int n_pad, int num_heads, int n_real,
+        float scale, cudaStream_t stream) {
+  const int w = num_heads * D;
+  PackedLoader<D> ld;
+  const cuuint64_t row = 3ull * w * 2;
+  const cuuint64_t in_strides[2] = {row, row * n_pad};
+  const cuuint32_t q_box[3] = {D, kBlockM, 1};
+  const cuuint32_t kv_box[3] = {D, kBlockN, 1};
+  const cuuint64_t q_dims[3] = {3ull * w, static_cast<cuuint64_t>(n_pad),
+                                static_cast<cuuint64_t>(batch)};
+  const cuuint64_t kv_dims[3] = {3ull * w, static_cast<cuuint64_t>(n_real),
+                                 static_cast<cuuint64_t>(batch)};
+  const cuuint64_t out_dims[3] = {static_cast<cuuint64_t>(w), static_cast<cuuint64_t>(n_pad),
+                                  static_cast<cuuint64_t>(batch)};
+  const cuuint64_t out_strides[2] = {2ull * w, 2ull * w * n_pad};
+  const cuuint32_t out_box[3] = {D, 64, 1};  // one warpgroup's rows
+  int err = encode_map(&ld.q, qkv, 3, q_dims, in_strides, q_box, kSwizzle<D>);
+  if (err == 0) err = encode_map(&ld.kv, qkv, 3, kv_dims, in_strides, kv_box, kSwizzle<D>);
+  if (err == 0) err = encode_map(&ld.out, out, 3, out_dims, out_strides, out_box, kSwizzle<D>);
+  if (err != 0) return err;
+  ld.n_keys = n_real;
+  ld.n_rows = n_pad;
+  ld.w = w;
+  ld.scale_log2 = scale * 1.4426950408889634f;
+  return launch(ld, (n_pad + kBlockM - 1) / kBlockM, num_heads, batch, stream);
+}
 
 }  // namespace
 
@@ -78,32 +112,11 @@ struct PackedLoader {
 extern "C" int packed_attention_fwd(const void* qkv, void* out, int batch, int n_pad,
                                     int num_heads, int head_dim, int n_real, float scale,
                                     void* stream) {
-  if (head_dim != kHeadDim || n_pad % 64 != 0 || n_real < 1 || n_real > n_pad || batch < 1 ||
-      num_heads < 1) {
+  if ((head_dim != 64 && head_dim != 32) || n_pad % 64 != 0 || n_real < 1 || n_real > n_pad ||
+      batch < 1 || num_heads < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int w = num_heads * head_dim;
-  PackedLoader ld;
-  const cuuint64_t row = 3ull * w * 2;
-  const cuuint64_t in_strides[2] = {row, row * n_pad};
-  const cuuint32_t q_box[3] = {kHeadDim, kBlockM, 1};
-  const cuuint32_t kv_box[3] = {kHeadDim, kBlockN, 1};
-  const cuuint64_t q_dims[3] = {3ull * w, static_cast<cuuint64_t>(n_pad),
-                                static_cast<cuuint64_t>(batch)};
-  const cuuint64_t kv_dims[3] = {3ull * w, static_cast<cuuint64_t>(n_real),
-                                 static_cast<cuuint64_t>(batch)};
-  const cuuint64_t out_dims[3] = {static_cast<cuuint64_t>(w), static_cast<cuuint64_t>(n_pad),
-                                  static_cast<cuuint64_t>(batch)};
-  const cuuint64_t out_strides[2] = {2ull * w, 2ull * w * n_pad};
-  const cuuint32_t out_box[3] = {kHeadDim, 64, 1};  // one warpgroup's rows
-  int err = encode_map(&ld.q, qkv, 3, q_dims, in_strides, q_box);
-  if (err == 0) err = encode_map(&ld.kv, qkv, 3, kv_dims, in_strides, kv_box);
-  if (err == 0) err = encode_map(&ld.out, out, 3, out_dims, out_strides, out_box);
-  if (err != 0) return err;
-  ld.n_keys = n_real;
-  ld.n_rows = n_pad;
-  ld.w = w;
-  ld.scale_log2 = scale * 1.4426950408889634f;
-  return launch(ld, (n_pad + kBlockM - 1) / kBlockM, num_heads, batch,
-                static_cast<cudaStream_t>(stream));
+  const auto st = static_cast<cudaStream_t>(stream);
+  return head_dim == 64 ? run<64>(qkv, out, batch, n_pad, num_heads, n_real, scale, st)
+                        : run<32>(qkv, out, batch, n_pad, num_heads, n_real, scale, st);
 }

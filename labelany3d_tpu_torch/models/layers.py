@@ -35,20 +35,23 @@ class Dense(nn.Linear):
 
 class Conv(nn.Conv2d):
     """NCHW convolution; `padding='same'` for odd kernels at stride 1 matches
-    Flax's default SAME padding. A float32 conv (the MoGe and DepthPro
-    output convs) runs with TF32 off, as the JAX package pins them to f32."""
+    Flax's default SAME padding (with `dilation`, pad `dilation * (k // 2)`).
+    A float32 conv (the MoGe and DepthPro output convs) runs with TF32 off,
+    as the JAX package pins them to f32."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, dtype: torch.dtype,
-                 stride: int = 1, padding: int | None = None, bias: bool = True):
+                 stride: int = 1, padding: int | None = None, bias: bool = True,
+                 dilation: int = 1):
         super().__init__(in_ch, out_ch, kernel, stride=stride,
-                         padding=kernel // 2 if padding is None else padding, bias=bias)
+                         padding=dilation * (kernel // 2) if padding is None else padding,
+                         dilation=dilation, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.compute_dtype
         with full_f32() if d == torch.float32 else contextlib.nullcontext():
             return F.conv2d(x.to(d), self.weight.to(d), _cast(self.bias, d),
-                            self.stride, self.padding)
+                            self.stride, self.padding, self.dilation)
 
 
 class Conv3Replicate(Conv):
@@ -123,6 +126,26 @@ class GroupNorm32(nn.GroupNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.group_norm(x.float(), self.num_groups, self.weight.float(),
                             self.bias.float(), self.eps)
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False) -> torch.Tensor:
+    """Softmax attention of q (B, Sq, H, D) against k, v (B, Sk, H, D) in
+    plain PyTorch: both products and the softmax in float32, scale
+    1/sqrt(D), keys after the query masked with `causal`. Returns q.dtype.
+    The attention the JAX package leaves to XLA
+    (`jax.nn.dot_product_attention`): no kernel of the repository stands
+    for it, and K2's plain version is kept apart so that its count reads
+    only K2's calls."""
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))  # (B, H, S, D)
+    with full_f32():
+        s = torch.matmul(qf, kf.transpose(-1, -2)) * (1.0 / float(q.shape[-1]) ** 0.5)
+        if causal:
+            sq, sk = s.shape[-2:]
+            s = s.masked_fill(torch.ones(sq, sk, dtype=torch.bool, device=s.device)
+                              .triu(1), float("-inf"))
+        out = torch.matmul(torch.softmax(s, dim=-1), vf)
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def resize(x: torch.Tensor, size: tuple[int, int], method: str = "bilinear",

@@ -171,13 +171,18 @@ class TrellisPipeline:
             self.init_params()
 
     # -- stages -----------------------------------------------------------
-    def preprocess(self, rgba: np.ndarray) -> torch.Tensor:
+    def preprocess(self, rgba: np.ndarray, segmenter=None) -> torch.Tensor:
         """Alpha-crop to the object's box, pad square (black), resize to
         `cond_size` as Pillow's 8-bit BILINEAR does; (S, S, 3) float32 in
-        [0, 1] on the device. An image without alpha is taken whole."""
+        [0, 1] on the device. An image without alpha goes through
+        `segmenter.remove` when one is given (the reference's background
+        removal, e.g. `models/saliency.py::RembgSegmenter`), else is taken
+        whole."""
         img = np.asarray(rgba)
         if img.dtype != np.uint8:
             img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+        if img.shape[-1] != 4 and segmenter is not None:
+            img = segmenter.remove(img)
         if img.shape[-1] == 4:
             alpha = img[..., 3] > 127
             rgb = img[..., :3] * alpha[..., None]

@@ -80,7 +80,10 @@ def cast_inference_params_(model: nn.Module, dtype: torch.dtype = torch.bfloat16
     or `bias`: Dense, Conv and ConvTranspose weights and biases, LayerNorm
     and GroupNorm biases) to `dtype` once; norm scales, LayerScale gammas
     and embeddings stay f32. Layers cast to their compute dtype per call, so
-    the weights' cast only saves work."""
+    the weights' cast only saves work. This rounds the weights of layers
+    that compute in f32 too, as the JAX depth backend's
+    `_cast_inference_params` does, so it serves the depth backend alone;
+    `hold_in_compute_dtype_` is the cast that changes no result."""
     for mod in model.modules():
         if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             mod.weight.data = mod.weight.data.to(dtype)
@@ -88,6 +91,22 @@ def cast_inference_params_(model: nn.Module, dtype: torch.dtype = torch.bfloat16
                 mod.bias.data = mod.bias.data.to(dtype)
         elif isinstance(mod, (LayerNorm32, GroupNorm32)):
             mod.bias.data = mod.bias.data.to(dtype)
+    return model
+
+
+@torch.no_grad()
+def hold_in_compute_dtype_(model: nn.Module) -> nn.Module:
+    """Hold each layer's weights in the dtype it computes in (a Dense, Conv
+    or ConvTranspose casts its weights to `compute_dtype` on every call), so
+    the cast happens once; the layers' results are unchanged. Norm and
+    embedding parameters keep their dtype. The JAX diffusion pipelines,
+    CLIP and ISNet cast no parameter, so their ports use this and not
+    `cast_inference_params_`, which rounds f32 layers' weights to bf16."""
+    for mod in model.modules():
+        d = getattr(mod, "compute_dtype", None)
+        if d is not None:
+            for p in mod.parameters(recurse=False):
+                p.data = p.data.to(d)
     return model
 
 

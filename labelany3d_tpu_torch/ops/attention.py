@@ -40,7 +40,15 @@ KERNEL_LAUNCHES = LaunchCounter()
 PLAIN_CALLS = LaunchCounter()
 
 _SOURCE = "packed_attention"
-_KERNEL_HEAD_DIM = 64
+# The head dims the kernels are built for (`attention_sm90.cuh`'s Tiles<D>):
+# 64 for MoGe, DepthPro, the full matcher and DINOv2; 32 for the elevation
+# matcher's tiny ViT and decoder.
+KERNEL_HEAD_DIMS = (32, 64)
+
+
+def _check_head_dim(d: int, kernel: str) -> None:
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{kernel} kernel is built for head dims {KERNEL_HEAD_DIMS}, got {d}")
 
 
 def packed_sdpa_reference(qkv: torch.Tensor, num_heads: int, n_real: int) -> torch.Tensor:
@@ -82,7 +90,10 @@ def _lib():
 
 
 def packed_sdpa_kernel(qkv: torch.Tensor, num_heads: int, n_real: int) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream."""
+    """Launch the CUDA kernel on PyTorch's current stream. The head dim is
+    checked first, so a call the kernel cannot take raises on any device."""
+    if qkv.dim() == 3 and qkv.shape[2] % (3 * num_heads) == 0:
+        _check_head_dim(qkv.shape[2] // 3 // num_heads, "packed attention")
     if qkv.device.type != "cuda":
         raise ValueError(f"packed attention kernel needs a CUDA tensor, got {qkv.device}")
     if qkv.dtype != torch.bfloat16:
@@ -96,9 +107,6 @@ def packed_sdpa_kernel(qkv: torch.Tensor, num_heads: int, n_real: int) -> torch.
     if w % num_heads:
         raise ValueError(f"width {w} is not divisible by {num_heads} heads")
     d = w // num_heads
-    if d != _KERNEL_HEAD_DIM:
-        raise ValueError(f"packed attention kernel is built for head dim "
-                         f"{_KERNEL_HEAD_DIM}, got {d}")
     if n_pad % 64 or not 1 <= n_real <= n_pad:
         raise ValueError(f"need Npad % 64 == 0 and 1 <= n_real <= Npad, got "
                          f"Npad={n_pad}, n_real={n_real}")
@@ -174,7 +182,10 @@ def _flash_lib():
 def flash_sdpa_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       segment_ids: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream. q, k and v are
-    read in place through their strides; the head dim must be contiguous."""
+    read in place through their strides; the head dim must be contiguous
+    (and is checked first, so a call the kernel cannot take raises on any
+    device)."""
+    _check_head_dim(q.shape[-1], "flash attention")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"flash attention kernel needs CUDA tensors, got {name} on "
@@ -189,9 +200,6 @@ def flash_sdpa_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"strides that are multiples of 8, got {t.stride()}")
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    if d != _KERNEL_HEAD_DIM:
-        raise ValueError(f"flash attention kernel is built for head dim {_KERNEL_HEAD_DIM}, "
-                         f"got {d}")
     if k.shape != (b, sk, h, d) or v.shape != k.shape:
         raise ValueError(f"k and v must be (B, Sk, H, D) = {(b, sk, h, d)}, got "
                          f"{tuple(k.shape)} and {tuple(v.shape)}")

@@ -6,9 +6,9 @@ DepthPro, conditioned on MoGe's focal, gives metric depth),
 `FakeDepthBackend` serves pre-registered analytic depth for tests, and
 `TorchMatcherBackend` mirrors `JaxMatcherBackend` (TwoViewMatcher +
 reciprocal NN) for the layout stage's registration. The stage-2 to stage-6
-factories give the shipping defaults, TRELLIS for stage 6's
-`obj_rec=trellis`, and raise for the generative backends that are not
-ported.
+factories give the shipping defaults, the SD-class backends (`invsr`,
+`our`, `zero123`), TRELLIS for stage 6's `obj_rec=trellis`, and raise for
+the Hunyuan3D backends, which are not ported.
 """
 
 from __future__ import annotations
@@ -282,6 +282,24 @@ class TorchMatcherBackend:
         return [(xy0[i], xy1[i], valid[i]) for i in range(p)]
 
 
+class ViewPairMatcher:
+    """Stage 5's `pair_matcher`: two uint8 (H, W, 3) views -> (xy0, xy1,
+    valid) through `matcher.match`, each view as an opaque RGBA in [0, 1]."""
+
+    def __init__(self, matcher: TorchMatcherBackend):
+        self.matcher = matcher
+
+    @staticmethod
+    def _rgba(img: np.ndarray) -> np.ndarray:
+        return np.concatenate([img.astype(np.float32) / 255.0,
+                               np.ones(img.shape[:2] + (1,), np.float32)], axis=-1)
+
+    def __call__(self, img0: np.ndarray, img1: np.ndarray):
+        from types import SimpleNamespace
+
+        return self.matcher.match(self._rgba(img0), SimpleNamespace(rgba=self._rgba(img1)))
+
+
 def make_depth(preset: str = "large", **kw) -> TorchDepthBackend:
     """Depth backend presets, as `register_default_backends().make_depth`."""
     if preset == "tiny_test":
@@ -305,9 +323,7 @@ def make_depth(preset: str = "large", **kw) -> TorchDepthBackend:
 
 # The generative backends of stages 2 to 6 that are not ported, and where
 # ROADMAP.md queue 1 has them. Their names raise instead of falling back.
-_NOT_PORTED = {"invsr": "item 6, the SD-class stack", "our": "item 6, the SD-class stack",
-               "zero123": "item 6, the SD-class stack",
-               "hunyuan3d": "item 7, Hunyuan3D", "hunyuan3d_carve": "item 7, Hunyuan3D"}
+_NOT_PORTED = {"hunyuan3d": "item 7, Hunyuan3D", "hunyuan3d_carve": "item 7, Hunyuan3D"}
 
 
 def _shipping_default(kind: str, backend: str, default: str, make):
@@ -317,26 +333,58 @@ def _shipping_default(kind: str, backend: str, default: str, make):
         raise NotImplementedError(f"{kind} backend {backend!r} is not ported yet "
                                   f"(ROADMAP.md queue 1 {_NOT_PORTED[backend]})")
     if backend != default:
-        raise ValueError(f"Unknown {kind} backend {backend!r} (the port has {default!r})")
+        raise ValueError(f"Unknown {kind} backend {backend!r}")
     return make()
 
 
-def make_enhance(backend: str = "bicubic", device=None, **_kw):
-    """'bicubic' (the shipping default); 'invsr' is not ported."""
+def make_enhance(backend: str = "bicubic", tiny: bool = False, device=None, seed: int = 0,
+                 **_kw):
+    """'bicubic' (the shipping default) or 'invsr': `InvSREnhance` at the
+    SD-1.5 widths and 256 px (the tiny UNet and VAE at 64 px with `tiny`),
+    random weights from `seed`."""
+    if backend == "invsr":
+        from labelany3d_tpu_torch.models.diffusion import InvSREnhance
+
+        return InvSREnhance(tiny=tiny, image_size=64 if tiny else 256, seed=seed, device=device)
     from labelany3d_tpu_torch.pipeline.stages.generative import BicubicEnhance
 
     return _shipping_default("enhance", backend, "bicubic", lambda: BicubicEnhance(device=device))
 
 
-def make_completion(backend: str = "none", **_kw):
-    """'none' (passthrough, the shipping default); 'our' is not ported."""
+def make_completion(backend: str = "none", tiny: bool = False, device=None, seed: int = 0,
+                    segment=None, **_kw):
+    """'none' (passthrough, the shipping default) or 'our': `AmodalCompletion`
+    at the SD-1.5 widths and 256 px (tiny at 64 px with `tiny`);
+    `segment='isnet'` re-segments each completed crop with ISNet for the
+    amodal alpha."""
+    if backend == "our":
+        from labelany3d_tpu_torch.models.diffusion import AmodalCompletion
+
+        return AmodalCompletion(tiny=tiny, image_size=64 if tiny else 256, seed=seed,
+                                segmenter=True if segment in ("isnet", True) else None,
+                                device=device)
     from labelany3d_tpu_torch.pipeline.stages.generative import PassthroughCompletion
 
     return _shipping_default("completion", backend, "none", PassthroughCompletion)
 
 
-def make_elevation(backend: str = "zero", **_kw):
-    """'zero' (the shipping default); 'zero123' is not ported."""
+def make_elevation(backend: str = "zero", tiny: bool = False, device=None, seed: int = 0,
+                   **_kw):
+    """'zero' (the shipping default) or 'zero123': `MatchingElevationEstimator`
+    over `Zero123NovelView` views (256 px, 64 with `tiny`) matched by a
+    `TorchMatcherBackend` (tiny by default, as in the JAX package), with the
+    render intrinsics scaled to the views' size."""
+    if backend == "zero123":
+        from labelany3d_tpu_torch.models.diffusion import Zero123NovelView
+        from labelany3d_tpu_torch.models.elevation import MatchingElevationEstimator
+        from labelany3d_tpu_torch.registration.cameras import RENDER_K
+
+        nv = Zero123NovelView(tiny=tiny, image_size=64 if tiny else 256, seed=seed,
+                              device=device)
+        K = RENDER_K.copy()
+        K[:2] *= nv.image_size / 512.0
+        return MatchingElevationEstimator(
+            nv, ViewPairMatcher(TorchMatcherBackend(seed=seed, device=device)), K)
     from labelany3d_tpu_torch.pipeline.stages.generative import ZeroElevation
 
     return _shipping_default("elevation", backend, "zero", ZeroElevation)

@@ -17,10 +17,12 @@ plus dotted `key=value` config overrides. Stages:
   all             the eight stages in turn over the index range
 
 The port has the shipping-default backend of each of stages 2, 4, 5 and 6,
-and TRELLIS for stage 6 (`run.obj_rec=trellis`); the other generative ones
-raise. Unlike the JAX runner, `all` keeps every stage's models loaded. Runs
-on CUDA; `--device cpu` runs the plain PyTorch path on the CPU. The JAX
-runner's `--wild` mode is not ported.
+the SD-class backends of stages 2, 4 and 5 (`run.enhance=invsr`,
+`run.amodal_completion=our`, `run.elevation=zero123`) and TRELLIS for stage
+6 (`run.obj_rec=trellis`); the Hunyuan3D ones raise. Unlike the JAX runner,
+`all` keeps every stage's models loaded. Runs on CUDA; `--device cpu` runs
+the plain PyTorch path on the CPU. The JAX runner's `--wild` mode is not
+ported.
 """
 
 from __future__ import annotations
@@ -63,8 +65,10 @@ def run_stages(stage: str, cfg: PipelineConfig, loader, source, save_dir: str, s
     the reconstruction backend, default to the registry's choice from
     `run_options` (the config's `run` section: `enhance`,
     `amodal_completion`, `elevation`, `obj_rec`), whose defaults are the
-    shipping ones; `obj_rec=trellis` builds TRELLIS on `device`, at its
-    tiny test config with `tiny` (the CLI's `models.tiny`).
+    shipping ones. Each generative backend is built on `device`, at its
+    tiny test config with `tiny` (the CLI's `models.tiny`), its random
+    weights seeded from `cfg.seed`, as the JAX runner's `_backend` passes
+    `tiny` to every factory.
     `stages`, when given, receives each stage object by name (a caller can
     read `stages["layout"].failures`)."""
     from labelany3d_tpu_torch.pipeline.backends import default_registry
@@ -86,6 +90,7 @@ def run_stages(stage: str, cfg: PipelineConfig, loader, source, save_dir: str, s
     stages = {} if stages is None else stages
     run_options = run_options or {}
     registry = default_registry()
+    gen_kw = {"tiny": tiny, "device": device, "seed": cfg.seed}
 
     def depth_backend():
         nonlocal backend
@@ -106,9 +111,9 @@ def run_stages(stage: str, cfg: PipelineConfig, loader, source, save_dir: str, s
         nonlocal enhance
         if enhance is None:
             enhance = registry.get("enhance", backend=str(run_options.get("enhance", "bicubic")),
-                                   device=device)
-        return EnhanceStage(cfg, loader, source, save_dir, split,
-                            backend=enhance).run(start_index, end_index)
+                                   **gen_kw)
+        stages["enhance"] = EnhanceStage(cfg, loader, source, save_dir, split, backend=enhance)
+        return stages["enhance"].run(start_index, end_index)
 
     def run_crops():
         # At CropStage's 512 px, as in the JAX package; the matcher resizes
@@ -120,22 +125,22 @@ def run_stages(stage: str, cfg: PipelineConfig, loader, source, save_dir: str, s
         nonlocal completion
         if completion is None:
             mode = run_options.get("amodal_completion")
-            completion = registry.get("completion", backend="our" if mode == "our" else "none")
-        return CompletionStage(cfg, loader, save_dir, split,
-                               backend=completion).run(start_index, end_index)
+            completion = registry.get("completion", backend="our" if mode == "our" else "none",
+                                      **gen_kw)
+        stages["completion"] = CompletionStage(cfg, loader, save_dir, split, backend=completion)
+        return stages["completion"].run(start_index, end_index)
 
     def run_elevation():
         nonlocal elevation
         if elevation is None:
             elevation = registry.get("elevation",
-                                     backend=str(run_options.get("elevation", "zero")))
-        return ElevationStage(cfg, loader, save_dir, split,
-                              backend=elevation).run(start_index, end_index)
+                                     backend=str(run_options.get("elevation", "zero")), **gen_kw)
+        stages["elevation"] = ElevationStage(cfg, loader, save_dir, split, backend=elevation)
+        return stages["elevation"].run(start_index, end_index)
 
     def run_reconstruction():
         backend_3d = registry.get("reconstruction",
-                                  backend=str(run_options.get("obj_rec", "silhouette")),
-                                  tiny=tiny, device=device, seed=cfg.seed)
+                                  backend=str(run_options.get("obj_rec", "silhouette")), **gen_kw)
         stages["reconstruction"] = ReconstructionStage(cfg, loader, save_dir, split,
                                                        backend=backend_3d)
         return stages["reconstruction"].run(start_index, end_index)

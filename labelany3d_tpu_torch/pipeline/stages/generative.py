@@ -12,8 +12,9 @@ Counterpart of `labelany3d_tpu/pipeline/stages/generative.py`:
     Default: silhouette extrusion.
 
 Each stage skips the artifacts that exist (resume). The generative backends
-(diffusion SR, amodal completion, Zero123 elevation, TRELLIS, Hunyuan3D)
-are not ported; `pipeline/backends.py` raises for their names.
+(InvSR, the amodal completion, Zero123 elevation: `models/diffusion/`;
+TRELLIS: `models/trellis/`) come from `pipeline/backends.py`'s factories;
+Hunyuan3D is not ported, and its names raise there.
 """
 
 from __future__ import annotations

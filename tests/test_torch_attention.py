@@ -53,3 +53,24 @@ def test_counters_and_cpu_route():
     assert port.PLAIN_CALLS.count == 1 and port.KERNEL_LAUNCHES.count == 0
     with pytest.raises(ValueError, match="CUDA tensor"):
         port.packed_sdpa_kernel(qkv, 1, 10)
+
+
+@pytest.mark.parametrize("d", [16, 40, 48, 80, 128])
+def test_kernel_wrappers_raise_for_other_head_dims(d):
+    """K1 and K2 are built for head dims 32 and 64 (`attention_sm90.cuh`'s
+    Tiles<D>); the wrappers refuse any other before reaching a device, so
+    the CPU sees the refusal the card would. 32 and 64 pass the head-dim
+    check and stop at the device check here."""
+    heads = 2
+    qkv = torch.zeros(1, 64, 3 * heads * d, dtype=torch.bfloat16)
+    q = torch.zeros(1, 64, heads, d, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        port.packed_sdpa_kernel(qkv, heads, 64)
+    with pytest.raises(ValueError, match="head dims"):
+        port.flash_sdpa_kernel(q, q, q)
+    assert port.KERNEL_HEAD_DIMS == (32, 64)
+    for ok in port.KERNEL_HEAD_DIMS:
+        with pytest.raises(ValueError, match="CUDA"):
+            port.packed_sdpa_kernel(torch.zeros(1, 64, 3 * heads * ok), heads, 64)
+        with pytest.raises(ValueError, match="CUDA"):
+            port.flash_sdpa_kernel(*(torch.zeros(1, 64, heads, ok),) * 3)

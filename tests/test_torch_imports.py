@@ -38,6 +38,12 @@ def test_import_leaves_jax_out():
         "import labelany3d_tpu_torch.ops.sparse_conv\n"
         "import labelany3d_tpu_torch.ops.marching_cubes\n"
         "import labelany3d_tpu_torch.ops.splat\n"
+        "import labelany3d_tpu_torch.data.bpe\n"
+        "import labelany3d_tpu_torch.models.clip\n"
+        "import labelany3d_tpu_torch.models.diffusion\n"
+        "import labelany3d_tpu_torch.models.diffusion.convert\n"
+        "import labelany3d_tpu_torch.models.saliency\n"
+        "import labelany3d_tpu_torch.models.elevation\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
     )
@@ -69,6 +75,12 @@ def test_source_scan_finds_no_forbidden_import():
     assert {"convert_trellis.py"} <= {f.name for f in files if f.parent.name == "models"}
     assert {"morton.py", "sparse_conv.py", "marching_cubes.py", "splat.py"} <= \
         {f.name for f in files if f.parent.name == "ops"}
+    # The SD-class stack is scanned too.
+    assert {"unet.py", "vae.py", "sampler.py", "noise_predictor.py", "pipelines.py",
+            "convert.py"} <= {f.name for f in files if f.parent.name == "diffusion"}
+    assert {"clip.py", "saliency.py", "elevation.py"} <= \
+        {f.name for f in files if f.parent.name == "models"}
+    assert (PKG / "data" / "bpe.py") in files
     bad = [(f.name, m) for f in files for m in _imports(f) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 
@@ -120,3 +132,30 @@ def test_entry_points_default_to_cuda(monkeypatch):
         make_depth("vitl_reference")
     ref = make_depth("vitl_reference", device="cpu")
     assert ref.moge is None and ref.moge_cfg.head_style == "reference" and ref._dp35
+
+
+def test_sd_entry_points_default_to_cuda(monkeypatch):
+    """The SD-class backends and their models run on CUDA unless the caller
+    passes "cpu"; nothing falls back."""
+    from labelany3d_tpu_torch.models.diffusion import (
+        AmodalCompletion,
+        InvSREnhance,
+        TextConditioner,
+        Zero123NovelView,
+    )
+    from labelany3d_tpu_torch.models.clip import CLIPTextConfig
+    from labelany3d_tpu_torch.models.saliency import RembgSegmenter
+    from labelany3d_tpu_torch.pipeline.backends import (
+        make_completion,
+        make_elevation,
+        make_enhance,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: make_enhance("invsr"), lambda: make_completion("our"),
+                 lambda: make_elevation("zero123"), lambda: InvSREnhance(tiny=True),
+                 lambda: AmodalCompletion(tiny=True), lambda: Zero123NovelView(tiny=True),
+                 lambda: RembgSegmenter(), lambda: TextConditioner(CLIPTextConfig.tiny_test())):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert make_elevation("zero123", tiny=True, device="cpu").novel_views.device.type == "cpu"

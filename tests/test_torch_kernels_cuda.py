@@ -92,12 +92,47 @@ def test_flash_attention_kernel_trellis_shapes(b, sq, sk, masked):
     _flash_check(b, sq, sk, masked, False, heads=16)
 
 
-def _flash_check(b, sq, sk, masked, strided, heads):
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n_pad,n_real,heads", [
+    (2, 1152, 1025, 2),   # the elevation matcher's tiny ViT: 256^2 views, patch 8, + cls
+    (2, 128, 65, 2),      # the same at the tiny factory's 64-px views
+    (3, 64, 61, 2),       # Npad = 64: two of a block's three warpgroups have no rows
+    (1, 256, 129, 2),     # one key past a whole tile
+    (4, 640, 577, 32),    # many heads of 32 (columns h * 32 of the packed rows)
+])
+def test_packed_attention_kernel_head_dim_32_matches_plain(b, n_pad, n_real, heads):
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    qkv = torch.randn(b, n_pad, 3 * heads * 32, device="cuda", generator=g).bfloat16()
+    qkv[:, n_real:] = float("nan")  # pad rows must not reach real outputs
+    launches = port.KERNEL_LAUNCHES.count
+    got = port.packed_sdpa(qkv, heads, n_real).float()[:, :n_real]
+    torch.cuda.synchronize()
+    assert port.KERNEL_LAUNCHES.count == launches + 1
+    want = port.packed_sdpa_reference(qkv.float(), heads, n_real)[:, :n_real]
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= MAX_ABS_TOL
+    assert ((got - want).norm() / want.norm()).item() <= REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,masked,strided", [
+    (1, 1024, 1024, None, False),         # the elevation matcher's tiny decoder at 256^2
+    (1, 64, 64, None, False),             # the same at 64-px views
+    (2, 1024, 777, None, True),           # cross shape, q read through strides
+    (2, 300, 300, (250, 300), False),     # segment ids, NaN in every pad row
+    (2, 5, 129, None, False),             # partial tiles, one key past a whole tile
+])
+def test_flash_attention_kernel_head_dim_32_matches_plain(b, sq, sk, masked, strided):
+    _flash_check(b, sq, sk, masked, strided, heads=2, d=32)
+
+
+def _flash_check(b, sq, sk, masked, strided, heads, d=64):
     _cuda_or_skip()
     g = torch.Generator(device="cuda").manual_seed(1)
 
     def rand(s):
-        return torch.randn(b, s, heads, 64, device="cuda", generator=g).bfloat16()
+        return torch.randn(b, s, heads, d, device="cuda", generator=g).bfloat16()
 
     q, k, v = rand(sq), rand(sk), rand(sk)
     if strided:

@@ -79,12 +79,18 @@ def test_prep_ref_matches_jax(src, dst):
 
 def test_generative_backends_not_ported_raise():
     reg = default_registry()
-    # TRELLIS ("trellis") is ported: tests/test_torch_trellis_pipeline.py.
-    for kind, name in (("enhance", "invsr"), ("completion", "our"), ("elevation", "zero123"),
-                       ("reconstruction", "hunyuan3d"), ("reconstruction", "hunyuan3d_carve")):
+    # TRELLIS ("trellis") is ported: tests/test_torch_trellis_pipeline.py; the
+    # SD-class backends ("invsr", "our", "zero123") too:
+    # tests/test_torch_diffusion_pipelines.py. Hunyuan3D's names still raise.
+    for kind, name in (("reconstruction", "hunyuan3d"), ("reconstruction", "hunyuan3d_carve")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
             reg.get(kind, backend=name)
         reg = default_registry()  # nothing cached after a raise, but start clean
+    for kind, name, cls in (("enhance", "invsr", "InvSREnhance"),
+                            ("completion", "our", "AmodalCompletion"),
+                            ("elevation", "zero123", "MatchingElevationEstimator")):
+        assert type(default_registry().get(kind, backend=name, tiny=True,
+                                           device="cpu")).__name__ == cls
     assert isinstance(reg.get("enhance", device="cpu"), stages.BicubicEnhance)
     assert isinstance(reg.get("completion"), stages.PassthroughCompletion)
     assert isinstance(reg.get("elevation"), stages.ZeroElevation)
@@ -198,5 +204,9 @@ def test_runner_main_all_route(tmp_path):
     assert boxes and all(np.isfinite(b["bbox3D_cam"]).all() for b in boxes)
     coco = json.loads((out / "COCO3D_val.json").read_text())
     assert len(coco["images"]) == 1 and len(coco["annotations"]) == len(boxes)
-    with pytest.raises(NotImplementedError, match="invsr"):
-        runner.main(["enhance", *common, "run.enhance=invsr"], device="cpu")
+    # The CLI reaches the generative factories with its run options: InvSR is
+    # ported (the enhanced image exists, so the stage resumes past it), and
+    # Hunyuan3D's name raises.
+    assert runner.main(["enhance", *common, "run.enhance=invsr"], device="cpu") == 0
+    with pytest.raises(NotImplementedError, match="hunyuan3d"):
+        runner.main(["reconstruction", *common, "run.obj_rec=hunyuan3d"], device="cpu")

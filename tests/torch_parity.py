@@ -126,13 +126,17 @@ class PairsMatcher:
         return [self.oracles[r].match(refs[r], views[p]) for p, r in enumerate(ref_index)]
 
 
-def random_flax_params(init, *args, seed: int = 0) -> dict:
-    """A Flax parameter tree of the shapes `init(key, *args)` gives, filled
-    from a numpy generator instead of running the (slow, unjitted) init:
+def flax_param_shapes(init, *args) -> dict:
+    """The shapes of the Flax parameter tree `init(key, *args)` gives, from
+    `jax.eval_shape` (no init runs)."""
+    return jax.eval_shape(init, jax.random.PRNGKey(0), *args)["params"]
+
+
+def fill_flax_params(shapes, seed: int = 0) -> dict:
+    """A Flax parameter tree of `shapes`, filled from a numpy generator:
     kernels N(0, 1/fan_in), norm scales 1 + N(0, 0.1^2), LayerScale gammas
     0.5 + N(0, 0.1^2), every other leaf N(0, 0.1^2). Numpy arrays; both
     packages take them as they are."""
-    shapes = jax.eval_shape(init, jax.random.PRNGKey(0), *args)["params"]
     rng = np.random.default_rng(seed)
 
     def fill(path, s):
@@ -147,3 +151,10 @@ def random_flax_params(init, *args, seed: int = 0) -> dict:
         return 0.1 * z
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def random_flax_params(init, *args, seed: int = 0) -> dict:
+    """A Flax parameter tree of the shapes `init(key, *args)` gives, filled
+    as `fill_flax_params` does, instead of running the (slow, unjitted)
+    init."""
+    return fill_flax_params(flax_param_shapes(init, *args), seed)
