@@ -46,7 +46,17 @@ weights from a seed:
     torch state dicts from a seed and loaded through the port's
     converters, the `all` route at the reference's configuration (those
     three and `run.obj_rec=trellis`) over 2 images with 2 objects each, and
-    the tiny configs on the card against the CPU.
+    the tiny configs on the card against the CPU;
+  * Hunyuan3D, stage 6's `obj_rec=hunyuan3d` and `hunyuan3d_carve`: the
+    components at the released widths (the SDXL-class mvd_std grid
+    diffusion with its CLIP ViT-L/14 and ViT-bigG/14 towers and VAE, 50
+    Euler-ancestral steps at 1536x1024; SVRM's camera-modulated DINOv2
+    ViT-B/14 and 16 LRM blocks -> K2, the triplane field on a 96^3 lattice,
+    the mesh; the visual-hull carver over Zero123 views) with weights made
+    as released torch state dicts from a seed and loaded through the
+    converters, the `all` route with `obj_rec=hunyuan3d` over 1 image with
+    2 objects, and SVRM (reduced, heads of 64) and the tiny mvd_std
+    pipeline on the card against the CPU.
 
 Each phase prints one line; any failure exits non-zero. Without CUDA, or
 without the rest of the repository beside it, it exits non-zero and prints
@@ -233,12 +243,14 @@ def bound(nbytes: float, flops: float, peak_flops: float = H100_BF16_FLOPS):
 
 
 def check_flash(b: int, sq: int, sk: int, seed: int, heads: int = 12, d: int = 64,
-                pad_keys: int = 0, strided: bool = False, timed: bool = False,
-                graph: bool = False) -> dict:
+                pad_keys: int = 0, strided: bool = False, fused: bool = False,
+                timed: bool = False, graph: bool = False) -> dict:
     """K2 against its plain version on the card. `pad_keys` > 0 masks the
     last keys through segment ids (self-attention) and fills every pad row
     of q, k and v with NaN; `strided` reads q from a (B, H, S, D) tensor
-    through its transposed view; `graph` as in `check_attention`."""
+    through its transposed view; `fused` (self-attention) reads q, k and v
+    as column views of one (B, S, 3 * H * D) tensor, as SVRM's encoder
+    splits its fused projection; `graph` as in `check_attention`."""
     import torch
     import torch.nn.functional as F
 
@@ -253,6 +265,10 @@ def check_flash(b: int, sq: int, sk: int, seed: int, heads: int = 12, d: int = 6
     if strided:
         q = q.transpose(1, 2).contiguous().transpose(1, 2)
     k, v = rand(sk), rand(sk)
+    if fused:
+        w = heads * d
+        qkv = torch.randn(b, sq, 3 * w, device="cuda", generator=g).bfloat16()
+        q, k, v = (qkv[..., i * w:(i + 1) * w].unflatten(-1, (heads, d)) for i in range(3))
     seg, real = None, slice(None)
     if pad_keys:
         seg = torch.zeros(b, sk, dtype=torch.int32, device="cuda")
@@ -482,18 +498,25 @@ class SyntheticLoader:
 class SyntheticState(dict):
     """A torch-named state dict of numpy float32 arrays, as a released
     checkpoint holds after `load_torch_checkpoint`: norm scales 1, biases 0,
-    every other weight N(0, std^2) from a seeded numpy generator."""
+    every other weight N(0, std^2) from a torch generator seeded on `device`
+    (the card's draws billions of parameters in seconds), each tensor copied
+    to the host once."""
 
-    def __init__(self, seed: int, std: float = 0.02):
+    def __init__(self, seed: int, std: float = 0.02, device: str | None = None):
         import numpy as np
+        import torch
 
         super().__init__()
         self.np = np
-        self.rng = np.random.default_rng(seed)
-        self.std = np.float32(std)
+        self.std = float(std)
+        self.device = device or "cpu"
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
 
     def rand(self, name: str, *shape) -> None:
-        self[name] = self.rng.standard_normal(shape, dtype=self.np.float32) * self.std
+        import torch
+
+        self[name] = (torch.randn(shape, generator=self.gen, device=self.device)
+                      .mul_(self.std).cpu().numpy())
 
     def const(self, name: str, value: float, *shape) -> None:
         self[name] = self.np.full(shape, value, self.np.float32)
@@ -543,10 +566,10 @@ class SyntheticState(dict):
         self.norm(pre + final_norm, c)
 
 
-def released_moge_state(cfg, seed: int = 0, std: float = 0.02) -> dict:
+def released_moge_state(cfg, seed: int = 0, std: float = 0.02, device: str | None = None) -> dict:
     """A MoGe release's names and shapes (`backbone.*`, `head.*`) for a
     `MoGeConfig` with the reference head, pos-embed on `cfg.backbone.pos_grid`."""
-    st = SyntheticState(seed, std)
+    st = SyntheticState(seed, std, device)
     bb = cfg.backbone
     gh, gw = bb.pos_grid
     st.vit("backbone.", bb, n_pos=gh * gw)
@@ -578,10 +601,11 @@ def released_moge_state(cfg, seed: int = 0, std: float = 0.02) -> dict:
     return st
 
 
-def released_depth_pro_state(cfg, seed: int = 1, std: float = 0.02) -> dict:
+def released_depth_pro_state(cfg, seed: int = 1, std: float = 0.02,
+                             device: str | None = None) -> dict:
     """The DepthPro release's names and shapes (`depth_pro.pt`) for a
     `DepthPro35Config`."""
-    st = SyntheticState(seed, std)
+    st = SyntheticState(seed, std, device)
     gh = cfg.patch_res // cfg.patch_encoder.patch_size
     st.vit("encoder.patch_encoder.", cfg.patch_encoder, n_pos=gh * gh)
     st.vit("encoder.image_encoder.", cfg.image_encoder, n_pos=gh * gh)
@@ -621,10 +645,11 @@ def released_depth_pro_state(cfg, seed: int = 1, std: float = 0.02) -> dict:
     return st
 
 
-def released_mast3r_state(cfg, seed: int = 2, std: float = 0.02) -> dict:
+def released_mast3r_state(cfg, seed: int = 2, std: float = 0.02,
+                          device: str | None = None) -> dict:
     """A MASt3R release's names and shapes (croco encoder and decoders,
     `downstream_head1/2`) for a `MatcherConfig` with the catmlpdpt head."""
-    st = SyntheticState(seed, std)
+    st = SyntheticState(seed, std, device)
     st.vit("", cfg.encoder, blocks="enc_blocks.", final_norm="enc_norm.")
     ew, dw = cfg.encoder.width, cfg.dec_width
     st.linear("decoder_embed.", ew, dw)
@@ -1189,7 +1214,7 @@ def reference_weights() -> tuple[dict, dict]:
              convert.convert_depth_pro),
             ("matcher", MatcherConfig.mast3r_vitl(), released_mast3r_state,
              convert.convert_mast3r)):
-        state = make(cfg)  # one released state dict in memory at a time
+        state = make(cfg, device="cuda")  # one released state dict in memory at a time
         counts[key] = sum(v.size for v in state.values())
         out[key] = conv(state, cfg)
         del state
@@ -1245,7 +1270,16 @@ def kernel_checks() -> dict:
           "elevation_decoder": check_flash(1, 1024, 1024, seed=46, heads=2, d=32, timed=True,
                                            graph=True),
           "elevation_cross_d32": check_flash(2, 1024, 777, seed=47, heads=2, d=32,
-                                             strided=True)}
+                                             strided=True),
+          # Stage 6's SVRM (obj_rec=hunyuan3d): its DINOv2 ViT-B/14 encoder
+          # over 7 views of 1 + 36^2 tokens (an odd Sq), again with q, k and
+          # v as column views of the fused qkv projection; an LRM block's
+          # self-attention over the 3 * 64^2 plane tokens and its
+          # cross-attention to the 7 x 1297 view tokens.
+          "svrm_encoder": check_flash(7, 1297, 1297, seed=48, heads=12, timed=True),
+          "svrm_encoder_fused": check_flash(7, 1297, 1297, seed=49, heads=12, fused=True),
+          "svrm_lrm_self": check_flash(1, 12288, 12288, seed=50, heads=16, timed=True),
+          "svrm_lrm_cross": check_flash(1, 12288, 9079, seed=51, heads=16, timed=True)}
     for name, r in k2.items():
         _say(f"K2:{name}", **r, max_abs_tol=K2_MAX_ABS_TOL, rel_tol=K2_REL_TOL)
     bad = [n for n, r in k2.items() if not r["finite"] or r["max_abs_err"] > K2_MAX_ABS_TOL
@@ -1369,7 +1403,7 @@ def _swin_torso_state(st, cfg) -> None:
         st.linear(f"blocks.{i}.mlp.mlp.2.", hid, w)
 
 
-def released_trellis_states(cfg, seed: int = 40, std: float = 0.02):
+def released_trellis_states(cfg, seed: int = 40, std: float = 0.02, device: str | None = None):
     """The six components of a `TrellisPipelineConfig` as released torch
     state dicts (DINOv2 with registers in timm's names, then the five
     TRELLIS models), N(0, std^2) from seeds: yields (component, state), one
@@ -1377,19 +1411,19 @@ def released_trellis_states(cfg, seed: int = 40, std: float = 0.02):
     from labelany3d_tpu_torch.models.trellis.decoders import flexicubes_channels
 
     ctx = cfg.cond_backbone.width
-    st = SyntheticState(seed, std)
+    st = SyntheticState(seed, std, device)
     gh, gw = cfg.cond_backbone.pos_grid
     st.vit("", cfg.cond_backbone, n_pos=gh * gw)
     yield "cond", st
 
     ss = cfg.structure
-    st = SyntheticState(seed + 1, std)
+    st = SyntheticState(seed + 1, std, device)
     _flow_state(st, ss.dit, ctx, ss.latent_channels * ss.patch_size ** 3,
                 ss.out_channels * ss.patch_size ** 3)
     yield "ss", st
 
     dec, ch = cfg.ss_dec, list(cfg.ss_dec.channels)
-    st = SyntheticState(seed + 2, std)
+    st = SyntheticState(seed + 2, std, device)
     _conv3d_state(st, "input_layer.", dec.latent_channels, ch[0])
 
     def res3d(pre, c):
@@ -1414,7 +1448,7 @@ def released_trellis_states(cfg, seed: int = 40, std: float = 0.02):
 
     sl, dit = cfg.slat, cfg.slat.dit
     io = list(sl.io_block_channels)
-    st = SyntheticState(seed + 3, std)
+    st = SyntheticState(seed + 3, std, device)
     _flow_state(st, dit, ctx, sl.latent_channels, sl.out_channels, end=io[0])
 
     def sres(pre, c_in, c_out):
@@ -1441,13 +1475,13 @@ def released_trellis_states(cfg, seed: int = 40, std: float = 0.02):
             j += 1
     yield "slat", st
 
-    st = SyntheticState(seed + 4, std)
+    st = SyntheticState(seed + 4, std, device)
     _swin_torso_state(st, cfg.dec_gs)
     st.linear("out_layer.", cfg.dec_gs.model_channels, cfg.gs_rep.num_gaussians * 14)
     yield "gs", st
 
     dm, c = cfg.dec_mesh, cfg.dec_mesh.model_channels
-    st = SyntheticState(seed + 5, std)
+    st = SyntheticState(seed + 5, std, device)
     _swin_torso_state(st, dm)
     for i, (c_in, c_out) in enumerate(((c, c // 4), (c // 4, c // 8))):
         pre = f"upsample.{i}."
@@ -1473,7 +1507,7 @@ def trellis_weights(cfg, seed: int = 40) -> tuple[dict, int]:
             "gs": lambda s: ct.convert_trellis_slat_gs(s, cfg.dec_gs),
             "mesh": lambda s: ct.convert_trellis_slat_mesh(s, cfg.dec_mesh)}
     params, n = {}, 0
-    for name, state in released_trellis_states(cfg, seed):
+    for name, state in released_trellis_states(cfg, seed, device="cuda"):
         n += sum(v.size for v in state.values())
         params[name] = conv[name](state)
         del state
@@ -1743,10 +1777,11 @@ def _sd_attn_state(st, pre: str, c: int) -> None:
         st.linear(pre + n, c, c)
 
 
-def released_sd_unet_state(cfg, seed: int = 60, std: float = 0.02) -> dict:
+def released_sd_unet_state(cfg, seed: int = 60, std: float = 0.02,
+                           device: str | None = None) -> dict:
     """A diffusers `UNet2DConditionModel` release's names and shapes for a
     `UNetConfig`."""
-    st = SyntheticState(seed, std)
+    st = SyntheticState(seed, std, device)
     ws, nrb, ctx = list(cfg.widths), cfg.num_res_blocks, cfg.context_dim
     tdim = 4 * ws[0]
     st.conv("conv_in.", cfg.in_channels, ws[0], 3)
@@ -1787,16 +1822,17 @@ def with_conv_in(state: dict, in_channels: int, seed: int = 61) -> dict:
     import numpy as np
 
     w = state["conv_in.weight"]
-    extra = np.random.default_rng(seed).standard_normal(
-        (w.shape[0], in_channels - w.shape[1]) + w.shape[2:], dtype=np.float32)
+    extra = SyntheticState(seed, float(w.std()))
+    extra.rand("w", w.shape[0], in_channels - w.shape[1], *w.shape[2:])
     out = dict(state)
-    out["conv_in.weight"] = np.concatenate([w, extra * np.float32(w.std())], axis=1)
+    out["conv_in.weight"] = np.concatenate([w, extra["w"]], axis=1)
     return out
 
 
-def released_sd_vae_state(cfg, seed: int = 62, std: float = 0.02) -> dict:
+def released_sd_vae_state(cfg, seed: int = 62, std: float = 0.02,
+                          device: str | None = None) -> dict:
     """A diffusers `AutoencoderKL` release's names and shapes for a `VAEConfig`."""
-    st = SyntheticState(seed, std)
+    st = SyntheticState(seed, std, device)
     ws, lc, n = list(cfg.widths), cfg.latent_channels, len(cfg.widths)
 
     def mid(pre, c):
@@ -1843,10 +1879,11 @@ def _clip_layers_state(st, pre: str, cfg) -> None:
         st.linear(b + "mlp.fc2.", hid, w)
 
 
-def released_clip_text_state(cfg, seed: int = 63, std: float = 0.02) -> dict:
+def released_clip_text_state(cfg, seed: int = 63, std: float = 0.02,
+                             device: str | None = None) -> dict:
     """A transformers `CLIPTextModel(WithProjection)` release for a
     `CLIPTextConfig`."""
-    st = SyntheticState(seed, std)
+    st = SyntheticState(seed, std, device)
     st.rand("text_model.embeddings.token_embedding.weight", cfg.vocab_size, cfg.width)
     st.rand("text_model.embeddings.position_embedding.weight", cfg.max_len, cfg.width)
     _clip_layers_state(st, "text_model.", cfg)
@@ -1856,10 +1893,11 @@ def released_clip_text_state(cfg, seed: int = 63, std: float = 0.02) -> dict:
     return st
 
 
-def released_clip_vision_state(cfg, seed: int = 64, std: float = 0.02) -> dict:
+def released_clip_vision_state(cfg, seed: int = 64, std: float = 0.02,
+                               device: str | None = None) -> dict:
     """A transformers `CLIPVisionModelWithProjection` release for a
     `CLIPVisionConfig` (HF's `pre_layrnorm` spelling)."""
-    st = SyntheticState(seed, std)
+    st = SyntheticState(seed, std, device)
     p, w = cfg.patch_size, cfg.width
     st.conv("vision_model.embeddings.patch_embedding.", 3, w, p, bias=False)
     st.rand("vision_model.embeddings.class_embedding", w)
@@ -1873,17 +1911,19 @@ def released_clip_vision_state(cfg, seed: int = 64, std: float = 0.02) -> dict:
     return st
 
 
-def released_cc_state(emb_dim: int, out_dim: int, seed: int = 65, std: float = 0.02) -> dict:
+def released_cc_state(emb_dim: int, out_dim: int, seed: int = 65, std: float = 0.02,
+                      device: str | None = None) -> dict:
     """Zero123's `clip_camera_projection` (Linear(emb_dim + 4 -> out_dim))."""
-    st = SyntheticState(seed, std)
+    st = SyntheticState(seed, std, device)
     st.linear("proj.", emb_dim + 4, out_dim)
     return st
 
 
-def released_isnet_state(cfg, seed: int = 66, std: float = 0.02) -> dict:
+def released_isnet_state(cfg, seed: int = 66, std: float = 0.02,
+                         device: str | None = None) -> dict:
     """DIS's `isnet-general-use.pth` names and shapes for an `ISNetConfig`:
     REBNCONVs with BatchNorm running statistics (mean 0, variance 1)."""
-    st = SyntheticState(seed, std)
+    st = SyntheticState(seed, std, device)
 
     def rebn(pre, c_in, c_out):
         st.conv(pre + "conv_s1.", c_in, c_out, 3)
@@ -1916,10 +1956,11 @@ def released_isnet_state(cfg, seed: int = 66, std: float = 0.02) -> dict:
     return st
 
 
-def released_noise_predictor_state(cfg, seed: int = 67, std: float = 0.02) -> dict:
+def released_noise_predictor_state(cfg, seed: int = 67, std: float = 0.02,
+                                   device: str | None = None) -> dict:
     """InvSR's `noise_predictor_sd_turbo_v5.pth` names (`encoder.*`) and
     shapes for a `NoisePredictorConfig`."""
-    st = SyntheticState(seed, std)
+    st = SyntheticState(seed, std, device)
     ws, temb = list(cfg.widths), cfg.temb_channels
     st.conv("encoder.conv_in.", cfg.in_channels, ws[0], 3)
     st.linear("encoder.time_embedding.linear_1.", max(128, ws[0]), temb)
@@ -1987,12 +2028,13 @@ def sd_weights(seed: int = 60) -> tuple[dict, int]:
 
     ucfg, tcfg, vcfg = UNetConfig(), CLIPTextConfig.sd15(), CLIPVisionConfig.vitl14()
     vae_cfg = VAEConfig()
-    unet4 = released_sd_unet_state(ucfg, seed)
-    vae = released_sd_vae_state(vae_cfg, seed + 2)
-    vision = released_clip_vision_state(vcfg, seed + 4)
-    cc = released_cc_state(vcfg.projection_dim, ucfg.context_dim, seed + 5)
-    text = released_clip_text_state(tcfg, seed + 3)
-    isnet = released_isnet_state(ISNetConfig.general_use(), seed + 6)
+    dev = "cuda"
+    unet4 = released_sd_unet_state(ucfg, seed, device=dev)
+    vae = released_sd_vae_state(vae_cfg, seed + 2, device=dev)
+    vision = released_clip_vision_state(vcfg, seed + 4, device=dev)
+    cc = released_cc_state(vcfg.projection_dim, ucfg.context_dim, seed + 5, device=dev)
+    text = released_clip_text_state(tcfg, seed + 3, device=dev)
+    isnet = released_isnet_state(ISNetConfig.general_use(), seed + 6, device=dev)
     n = sum(v.size for st in (unet4, vae, vision, cc, text, isnet) for v in st.values())
     zero123 = convert_zero123(with_conv_in(unet4, 8, seed + 1), vae, vision, cc,
                               unet_cfg=dataclasses.replace(ucfg, in_channels=8),
@@ -2399,6 +2441,562 @@ def run_sd(tmp: str) -> dict:
     return {"components": comp, "route": route, "card_vs_cpu": check}
 
 
+# Phase 13, Hunyuan3D (stage 6's `hunyuan3d` and `hunyuan3d_carve`): K2 at
+# SVRM's shapes is in phase 4; weights in the releases' torch layouts (SVRM's
+# svrm.safetensors, the mvd_std diffusers components), the components at
+# full width, the `all` route with obj_rec=hunyuan3d, the card against the
+# CPU.
+
+# The card against the CPU. SVRM runs K2, which takes bf16 at head dims 32
+# and 64, so its check runs a reduced SVRM with heads of 64 in bf16 on both
+# (the CPU's plain attention on the same bf16 operands), as phase 11(c) does
+# for TRELLIS. SVRM keeps its residual streams in bf16 (as the JAX
+# package's), so each residual sum rounds to bf16 (2^-9 to 2^-8 relative) in
+# another place on each side: the CPU's own bf16 against its float32 run
+# differs by about 9e-3 (`bf16_floor_*`, printed beside). The limit's other
+# end is read in every run from faults planted on the card's side
+# (`SVRM_FAULTS`): K2 losing the last key tile of every launch that has more
+# than one moves the triplanes by about 8e-2, two planes swapped by about
+# 0.2, and the check fails if either stays within the limit. The mvd grid
+# runs the tiny configs in float32 (plain attention on both): a float32
+# difference of 1e-6 carried through 3 Euler-ancestral steps and the VAE.
+HY_SVRM_REL_TOL = 2e-2
+HY_MVD_REL_TOL = 1e-3
+HY_IMAGES = 1              # phase 13(c): 1 image x 2 objects
+HY_INSTANCES = 2
+HY_VIEW = 512              # a grid tile and a crop
+
+
+def released_svrm_state(cfg, seed: int = 80, std: float = 0.02,
+                        device: str | None = None) -> dict:
+    """The released `svrm.safetensors` names and shapes for an `SVRMConfig`
+    (`img_encoder.model.*` dinov2 with AdaNorm, `img_to_triplane_decoder.*`,
+    `render.decoder.net.*`)."""
+    st = SyntheticState(seed, std, device)
+    e, w, pg = "img_encoder.model.", cfg.enc_width, cfg.enc_pos_grid
+    st.linear(e + "cam_embed.0.", cfg.cam_dim, w)
+    st.linear(e + "cam_embed.2.", w, w)
+    st.conv(e + "patch_embed.proj.", 3, w, cfg.enc_patch)
+    st.rand(e + "pos_embed", 1, 1 + pg * pg, w)
+    st.rand(e + "cls_token", 1, 1, w)
+    for i in range(cfg.enc_depth):
+        b = f"{e}blocks.{i}."
+        st.linear(b + "norm1.adaLN_modulation.1.", w, 2 * w)
+        st.linear(b + "attn.qkv.", w, 3 * w)
+        st.linear(b + "attn.proj.", w, w)
+        st.const(b + "ls1.gamma", cfg.layerscale_init, w)
+        st.linear(b + "norm2.adaLN_modulation.1.", w, 2 * w)
+        st.linear(b + "mlp.fc1.", w, 4 * w)
+        st.linear(b + "mlp.fc2.", 4 * w, w)
+        st.const(b + "ls2.gamma", cfg.layerscale_init, w)
+    st.linear(e + "norm.adaLN_modulation.1.", w, 2 * w)
+    d, dim = "img_to_triplane_decoder.", cfg.token_dim
+    st.rand(d + "pos_emb", 1, 3 * cfg.plane_size ** 2, dim)
+    for i in range(cfg.depth):
+        b = f"{d}img_to_triplane_decoder.transformer_blocks.{i}."
+        for n in (1, 2, 3):
+            st.norm(b + f"norm{n}.", dim)
+        for a, kv in (("attn1.", cfg.context_dim), ("attn2.", dim)):
+            st.rand(b + a + "to_q.weight", dim, dim)
+            st.rand(b + a + "to_k.weight", dim, kv)
+            st.rand(b + a + "to_v.weight", dim, kv)
+            st.linear(b + a + "to_out.0.", dim, dim)
+        st.linear(b + "ff.net.0.proj.", dim, 8 * dim)
+        st.linear(b + "ff.net.2.", 4 * dim, dim)
+    st.norm(d + "img_to_triplane_decoder.norm.", dim)
+    st.linear(d + "upsampler.", dim, cfg.triplane_dim * cfg.upsample_ratio ** 2)
+    n_in = 3 * cfg.triplane_dim
+    for i in range(cfg.field_layers - 1):
+        st.linear(f"render.decoder.net.{2 * i}.", n_in, cfg.field_hidden)
+        n_in = cfg.field_hidden
+    st.linear(f"render.decoder.net.{2 * (cfg.field_layers - 1)}.", n_in, 4)
+    return st
+
+
+def _sdxl_transformer_state(st, pre: str, c: int, ctx: int, depth: int) -> None:
+    """A diffusers SDXL Transformer2DModel: linear proj_in/out, `depth` blocks."""
+    st.norm(pre + "norm.", c)
+    st.linear(pre + "proj_in.", c, c)
+    for d in range(depth):
+        tb = pre + f"transformer_blocks.{d}."
+        for i, kv in ((1, c), (2, ctx)):
+            st.norm(tb + f"norm{i}.", c)
+            st.rand(tb + f"attn{i}.to_q.weight", c, c)
+            st.rand(tb + f"attn{i}.to_k.weight", c, kv)
+            st.rand(tb + f"attn{i}.to_v.weight", c, kv)
+            st.linear(tb + f"attn{i}.to_out.0.", c, c)
+        st.norm(tb + "norm3.", c)
+        st.linear(tb + "ff.net.0.proj.", c, 8 * c)
+        st.linear(tb + "ff.net.2.", 4 * c, c)
+    st.linear(pre + "proj_out.", c, c)
+
+
+def released_mvd_unet_state(cfg, seed: int = 81, std: float = 0.02,
+                            device: str | None = None) -> dict:
+    """A diffusers SDXL `UNet2DConditionModel` release (Hunyuan3D's
+    `weights/mvd_std/unet`) for an `MVDUNetConfig`."""
+    st = SyntheticState(seed, std, device)
+    ws, nrb, ctx = list(cfg.widths), cfg.num_res_blocks, cfg.context_dim
+    tdim, depth = 4 * ws[0], cfg.transformer_depth
+    st.conv("conv_in.", cfg.in_channels, ws[0], 3)
+    st.linear("time_embedding.linear_1.", ws[0], tdim)
+    st.linear("time_embedding.linear_2.", tdim, tdim)
+    st.linear("add_embedding.linear_1.", cfg.pooled_dim + 6 * cfg.addition_time_embed_dim, tdim)
+    st.linear("add_embedding.linear_2.", tdim, tdim)
+    skips, c = [ws[0]], ws[0]
+    for lvl, w in enumerate(ws):
+        for i in range(nrb):
+            _sd_resnet_state(st, f"down_blocks.{lvl}.resnets.{i}.", c, w, tdim)
+            c = w
+            if lvl in cfg.attn_levels:
+                _sdxl_transformer_state(st, f"down_blocks.{lvl}.attentions.{i}.", c, ctx,
+                                        depth[lvl])
+            skips.append(c)
+        if lvl < len(ws) - 1:
+            st.conv(f"down_blocks.{lvl}.downsamplers.0.conv.", c, c, 3)
+            skips.append(c)
+    _sd_resnet_state(st, "mid_block.resnets.0.", c, c, tdim)
+    _sdxl_transformer_state(st, "mid_block.attentions.0.", c, ctx, depth[-1])
+    _sd_resnet_state(st, "mid_block.resnets.1.", c, c, tdim)
+    for u in range(len(ws)):
+        lvl = len(ws) - 1 - u
+        for i in range(nrb + 1):
+            _sd_resnet_state(st, f"up_blocks.{u}.resnets.{i}.", c + skips.pop(), ws[lvl], tdim)
+            c = ws[lvl]
+            if lvl in cfg.attn_levels:
+                _sdxl_transformer_state(st, f"up_blocks.{u}.attentions.{i}.", c, ctx, depth[lvl])
+        if lvl > 0:
+            st.conv(f"up_blocks.{u}.upsamplers.0.conv.", c, c, 3)
+    st.norm("conv_norm_out.", c)
+    st.conv("conv_out.", c, cfg.out_channels, 3)
+    return st
+
+
+def install_hunyuan_weights(mv, svrm_cfg, seed: int = 80) -> tuple[dict, int]:
+    """Seeded released-layout state dicts of every Hunyuan3D component,
+    drawn on the card, through the port's converters: the mvd_std UNet,
+    VAE, ViT-L/14 and ViT-bigG/14 towers, text embeddings and ramp,
+    installed into the `MVDStdViews` `mv` one component at a time (each
+    state freed before the next is made), and SVRM's tree, returned.
+    Returns the SVRM tree and the parameters made."""
+    std, device = 0.02, "cuda"
+    import numpy as np
+
+    from labelany3d_tpu_torch.models.diffusion.convert import convert_mvd
+    from labelany3d_tpu_torch.models.svrm import convert_svrm
+
+    n = 0
+    for key, make in (
+            ("unet_state", lambda: released_mvd_unet_state(mv.unet_cfg, seed + 1, std, device)),
+            ("vae_state", lambda: released_sd_vae_state(mv.vae_cfg, seed + 2, std, device)),
+            ("vision_state", lambda: released_clip_vision_state(mv.vision_cfgs[0], seed + 3,
+                                                                std, device)),
+            ("vision2_state", lambda: released_clip_vision_state(mv.vision_cfgs[1], seed + 4,
+                                                                 std, device))):
+        state = make()
+        n += sum(v.size for v in state.values())
+        mv.set_params(convert_mvd(**{key: state}, unet_cfg=mv.unet_cfg, vae_cfg=mv.vae_cfg,
+                                  vision_cfg=mv.vision_cfgs[0], vision2_cfg=mv.vision_cfgs[1]))
+        del state
+    rng = np.random.default_rng(seed + 5)
+    ctx, pooled = mv.unet_cfg.context_dim, mv.unet_cfg.pooled_dim
+    mv.set_params(convert_mvd(
+        uc_text_emb=rng.standard_normal((1, 77, ctx), dtype=np.float32),
+        uc_text_emb_2=rng.standard_normal((1, pooled), dtype=np.float32),
+        ramping_coefficients=np.linspace(0.0, 1.0, 77, dtype=np.float32)))
+    state = released_svrm_state(svrm_cfg, seed, std, device)
+    n += sum(v.size for v in state.values())
+    return convert_svrm(state, svrm_cfg), n
+
+
+def mvd_ref_count(cfg) -> int:
+    """Transformer blocks of an `MVDUNet`: the tokens a write pass records."""
+    d = cfg.transformer_depth
+    return (sum((2 * cfg.num_res_blocks + 1) * d[lvl] for lvl in cfg.attn_levels)
+            + d[-1])
+
+
+def svrm_k2_launches(cfg) -> int:
+    """K2 launches of one `SVRM` forward: each encoder block's
+    self-attention, each LRM block's cross- and self-attention."""
+    return cfg.enc_depth + 2 * cfg.depth
+
+
+def run_hunyuan_components() -> dict:
+    """Phase 13(b): the Hunyuan3D components at the released widths with
+    seeded released-layout weights, each call cold (its first) and warm
+    between CUDA syncs: `MVDStdViews.generate_views` (50 steps), one
+    `MVDUNet` write forward (both reference rows at 64^2) and one read
+    forward (both CFG rows of the 192x128 grid latent), `CamModViT` on the
+    7 views, the triplane decoder, `SVRM.grid` at G = 96,
+    `marching_cubes_mesh`, `SVRMReconstruction.reconstruct` with the
+    generated views served from the pipeline's cache, and `SpaceCarveReconstruction.reconstruct`
+    over Zero123 views (its factory's default init); K2 launches per
+    `reconstruct`; a traced warm `reconstruct` and sampler step."""
+    import numpy as np
+    import torch
+
+    from labelany3d_tpu_torch.models.diffusion import MVDStdViews
+    from labelany3d_tpu_torch.models.svrm import SVRMConfig, SVRMReconstruction
+    from labelany3d_tpu_torch.ops.marching_cubes import marching_cubes_mesh
+    from labelany3d_tpu_torch.pipeline.backends import make_reconstruction
+
+    counters, plains = kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mv = MVDStdViews(device="cuda")
+    svrm_cfg = SVRMConfig()
+    svrm_tree, n_params = install_hunyuan_weights(mv, svrm_cfg)
+    recon = SVRMReconstruction(cfg=svrm_cfg, params=svrm_tree, device="cuda")
+    model = recon._ensure()
+    del svrm_tree
+    torch.cuda.synchronize()
+    res = {"weights_s": time.perf_counter() - t0, "parameters": n_params,
+           "cold_s": {}, "warm_s": {}}
+    crop = trellis_crop(13, HY_VIEW)
+    outs = {}
+
+    def timed(name, fn):
+        for phase in ("cold_s", "warm_s"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with torch.inference_mode():
+                outs[name] = fn()
+            torch.cuda.synchronize()
+            res[phase][name] = time.perf_counter() - t
+
+    # Through `generate`, whose uncached call runs `generate_views` once:
+    # each pass asks for its own seed, so neither is served from the cache,
+    # and the warm one (seed 0, as `reconstruct` asks) leaves its views there.
+    seeds = iter((1, 0))
+    timed("generate_views", lambda: mv.generate(crop, 0.0, 0.0, seed=next(seeds)))
+    views = [mv.generate(crop, 0.0, azim) for azim in range(0, 360, 60)]
+    # One sampler step's two UNet passes at the path's shapes.
+    lf, mcfg = mv.latent_factor, mv.cfg
+    with torch.inference_mode():
+        from labelany3d_tpu_torch.models.layers import resize_bicubic_8bit, white_composite
+
+        rgb = torch.from_numpy(white_composite(crop).copy()).cuda()
+        cond = resize_bicubic_8bit(rgb.permute(2, 0, 1)[None],
+                                   (mcfg.cond_size,) * 2)[0].permute(1, 2, 0)
+        ctx2, pooled2, tid2 = mv.condition(cond)
+    ref = torch.randn(2, mcfg.cond_size // lf, mcfg.cond_size // lf, 4, device="cuda")
+    lat = torch.randn(2, 3 * mcfg.tile // lf, 2 * mcfg.tile // lf, 4, device="cuda")
+    tb = torch.full((2,), 0.5, device="cuda")
+    timed("unet_write", lambda: mv.unet(ref, tb, ctx2, pooled2, tid2, mode="write"))
+    refs = outs["unet_write"][1]
+    timed("unet_read", lambda: mv.unet(lat, tb, ctx2, pooled2, tid2, mode="read", refs=refs))
+    res["refs"] = len(refs)
+
+    recon.novel_views = mv
+    view_list, cams = recon.views(crop)
+    x = recon.preprocess(view_list)[0]
+    cams_t = torch.from_numpy(cams).cuda()
+    timed("cam_mod_vit", lambda: model.encoder(x, cams_t))
+    timed("triplane_decoder", lambda: model.decode(outs["cam_mod_vit"]))
+    planes = outs["triplane_decoder"]
+    timed("grid", lambda: model.grid(planes[0]))
+    sdf, rgb_lat = outs["grid"]
+    timed("marching_cubes_mesh", lambda: marching_cubes_mesh(-sdf))
+    for k in (*counters.values(), *plains.values()):
+        k.reset()
+    timed("reconstruct", lambda: recon.reconstruct(crop))
+    res["launches"] = {k: v.count for k, v in counters.items()}
+    res["plain_calls"] = {k: v.count for k, v in plains.items()}
+    # The cold and warm reconstructs: one SVRM forward each.
+    res["want"] = {"k1": 0, "k2": 2 * svrm_k2_launches(svrm_cfg), "k3": 0, "k4": 0}
+    mesh = outs["reconstruct"]
+    res["mesh"] = {"vertices": len(mesh.vertices), "faces": len(mesh.faces),
+                   "finite": bool(np.isfinite(mesh.vertices).all())}
+    res["sdf"] = {"min": float(sdf.min()), "max": float(sdf.max()),
+                  "finite": bool(torch.isfinite(sdf).all())}
+    res["planes_shape"] = list(planes.shape)
+    views_arr = np.stack(views)
+    res["views"] = {"n": len(views), "shape": list(views_arr.shape[1:]),
+                    "std_levels": float(views_arr.std())}
+    res["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # The traced warm passes: one reconstruct (views from the cache), one
+    # sampler step (write pass, read pass, guidance, update).
+    def step():
+        with torch.inference_mode():
+            _, r = mv.unet(ref, tb, ctx2, pooled2, tid2, mode="write")
+            e2, _ = mv.unet(lat, tb, ctx2, pooled2, tid2, mode="read", refs=r)
+            return e2[:1] + mcfg.guidance * (e2[1:] - e2[:1])
+
+    res["profile"] = {}
+    for name, fn in (("reconstruct", lambda: recon.reconstruct(crop)), ("step", step)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        pass_ms = (time.perf_counter() - t) * 1e3
+        prof = profile_pass(fn, host=False)
+        res["profile"][name] = {"pass_ms": pass_ms, "device_ms": prof["device_ms"],
+                                "k2_ms": prof["k2_ms"], "top_device": prof["top_device"],
+                                "idle_share": (1.0 - prof["device_ms"] / pass_ms
+                                               if prof["device_ms"] > 0 else "not measured")}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as read_prof, torch.inference_mode():
+        mv.unet(lat, tb, ctx2, pooled2, tid2, mode="read", refs=refs)
+        torch.cuda.synchronize()
+    res["profile"]["unet_read_by_op_ms"] = device_ms_by_op(read_prof)
+    want_refs = mvd_ref_count(mv.unet_cfg)
+    del mv, recon, model, outs["unet_write"], outs["unet_read"], refs, planes, sdf, rgb_lat
+    torch.cuda.empty_cache()
+
+    carve = make_reconstruction("hunyuan3d_carve", device="cuda")
+    timed("carve_reconstruct", lambda: carve.reconstruct(crop))
+    cm = outs.pop("carve_reconstruct")
+    res["carve_mesh"] = {"vertices": len(cm.vertices), "faces": len(cm.faces)}
+    del carve
+    torch.cuda.empty_cache()
+    res["ok"] = (res["launches"] == res["want"] and not any(res["plain_calls"].values())
+                 and res["mesh"]["finite"] and res["sdf"]["finite"]
+                 and res["planes_shape"] == [1, 3, 256, 256, svrm_cfg.triplane_dim]
+                 and res["views"]["n"] == 6 and res["views"]["shape"] == [HY_VIEW, HY_VIEW, 3]
+                 and res["refs"] == want_refs)
+    return res
+
+
+def run_hunyuan_route(tmp: str) -> dict:
+    """Phase 13(c): `run_stages("all", ...)` with run.obj_rec=hunyuan3d (the
+    mvd_std views, the reference's view source) over 1 synthetic image with
+    2 objects, stages 2, 4 and 5 at their shipping defaults; the mvd_std
+    pipeline and SVRM from the factory at their released widths with their
+    default (random) initialisation. Depth at the `large` preset, the
+    layout's matcher `MatcherConfig()`, `bbox_method=minarea_pallas`."""
+    import numpy as np
+    import torch
+
+    from labelany3d_tpu_torch.data.meshio import load_glb
+    from labelany3d_tpu_torch.pipeline.backends import TorchMatcherBackend, default_registry
+    from labelany3d_tpu_torch.pipeline.config import PipelineConfig
+    from labelany3d_tpu_torch.pipeline.runner import run_stages
+    from labelany3d_tpu_torch.pipeline.scene import SceneDir, scene_dir_name
+    from labelany3d_tpu_torch.pipeline.stages.common import ArrayImageSource
+    from labelany3d_tpu_torch.utils.profiling import StageTimer
+
+    cfg = PipelineConfig(bbox_method="minarea_pallas")
+    loader = SyntheticLoader(HY_IMAGES, IMAGE_HW, seed=13, min_inst=HY_INSTANCES,
+                             max_inst=HY_INSTANCES)
+    backend = default_registry().get("depth", preset="large", pin_hw=cfg.bucket_sizes()[0],
+                                     device="cuda", seed=cfg.seed)
+    matcher = TorchMatcherBackend(tiny=False, seed=cfg.seed, device="cuda")
+    counters, plains = kernel_counters()
+    for k in (*counters.values(), *plains.values()):
+        k.reset()
+    torch.cuda.reset_peak_memory_stats()
+    out_dir, stages, timer = os.path.join(tmp, "hunyuan_all"), {}, StageTimer()
+    t0 = time.perf_counter()
+    run_stages("all", cfg, loader, ArrayImageSource(loader.pixels), out_dir, "val", 0,
+               HY_IMAGES, backend=backend, matcher=matcher,
+               run_options={"obj_rec": "hunyuan3d"}, device="cuda", timer=timer,
+               stages=stages)
+    torch.cuda.synchronize()
+    recon = stages["reconstruction"].backend
+    res = {"s": time.perf_counter() - t0,
+           "stage_s": {k: timer.stats[k].total_seconds for k in ALL_STAGES},
+           "launches": {k: v.count for k, v in counters.items()},
+           "plain_calls": {k: v.count for k, v in plains.items()},
+           "failures": list(stages["layout"].failures), "forwards": matcher.forwards,
+           "view_source": type(recon.novel_views).__name__,
+           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    meshes, placed, with_boxes, bad = [], 0, set(), []
+    for info in loader.images:
+        name = scene_dir_name(info["file_name"])
+        sd = SceneDir(os.path.join(out_dir, "val", name))
+        for i in sd.list_crop_ids():
+            if not sd.object_mesh(i).exists():
+                bad.append(f"{name}:{i}")
+                continue
+            m = load_glb(sd.object_mesh(i))
+            meshes.append((len(m.vertices), len(m.faces)))
+            if not (np.isfinite(m.vertices).all() and (m.faces.size == 0
+                    or (m.faces.min() >= 0 and m.faces.max() < len(m.vertices)))):
+                bad.append(f"{name}:{i}")
+        placed += (sd.root / "reconstruction" / "full_scene.glb").exists()
+        if sd.bbox3d.exists() and sd.read_bbox3d():
+            with_boxes.add(name)
+    with open(os.path.join(out_dir, "COCO3D_val.json")) as f:
+        listed = {os.path.basename(im["file_path"]).rsplit(".", 1)[0]
+                  for im in json.load(f)["images"]}
+    res["meshes"], res["bad_glbs"] = meshes, bad
+    res["scenes_with_boxes"], res["coco3d_images"] = sorted(with_boxes), sorted(listed)
+    layout = matcher_launches(matcher.cfg, res["forwards"])
+    depth_k1 = (-(-HY_IMAGES // cfg.batch_size)
+                * (backend.moge_cfg.backbone.depth + backend.dp_cfg.backbone.depth))
+    n = len(meshes)
+    res["want"] = {"k1": depth_k1 + layout["k1"],
+                   "k2": svrm_k2_launches(recon.cfg) * n + layout["k2"],
+                   "k3": layout["k3"], "k4": placed}
+    res["ok"] = (res["launches"] == res["want"] and not any(res["plain_calls"].values())
+                 and n == HY_IMAGES * HY_INSTANCES and not bad
+                 and res["view_source"] == "MVDStdViews" and with_boxes == listed)
+    del stages, backend, matcher, recon
+    torch.cuda.empty_cache()
+    return res
+
+
+# Faults planted in the card's SVRM for phase 13(d), each read against the
+# same CPU run; those marked True must break the limit. `lost_tile_last` (K2
+# losing its last key tile in the last LRM self-attention alone, a fault no
+# kernel bug makes by itself: both self-attentions have one shape) is read
+# and not held, as the limit's blind spot.
+SVRM_FAULTS = {"lost_tile_every": True, "lost_tile_last": False, "plane_swap": True}
+
+
+def svrm_check_config():
+    """A reduced SVRM whose attention K2 takes (heads of 64), with a 5^2
+    position grid resized to the 4^2 patch grid."""
+    import torch
+
+    from labelany3d_tpu_torch.models.svrm import SVRMConfig
+
+    return SVRMConfig(num_views=3, image_size=56, enc_width=128, enc_depth=2, enc_heads=2,
+                      enc_pos_grid=5, plane_size=8, token_dim=128, depth=2, num_heads=2,
+                      context_dim=128, triplane_dim=8, upsample_ratio=2, field_hidden=16,
+                      grid_size=32, dtype=torch.bfloat16)
+
+
+def hunyuan_card_vs_cpu(seed: int = 90) -> dict:
+    """Phase 13(d): SVRM at `svrm_check_config()` in bf16 (K2 on the card,
+    the plain attention on the CPU) and the tiny mvd_std pipeline in float32,
+    with seeded released-layout weights through the converters, on the card
+    and on the CPU from the same inputs and draws: the triplanes, the grid
+    sdf, and the mvd grid's float image before its 8-bit step. Relative
+    L2; K2 launches on the card; the card's grid's spread in levels; and
+    SVRM's bf16 floor, the CPU's bf16 run against its float32 run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from labelany3d_tpu_torch.models.diffusion import MVDStdViews
+    from labelany3d_tpu_torch.models.diffusion.convert import convert_mvd
+    import labelany3d_tpu_torch.models.svrm as svrm_mod
+    from labelany3d_tpu_torch.models.svrm import SVRM, convert_svrm
+    from labelany3d_tpu_torch.models.weights import build_module
+
+    cfg = svrm_check_config()
+    tree = convert_svrm(released_svrm_state(cfg, seed, std=0.05), cfg)
+    rng = np.random.default_rng(seed)
+    views = torch.from_numpy(rng.standard_normal(
+        (1, cfg.num_views, cfg.image_size, cfg.image_size, 3)).astype(np.float32))
+    cams = torch.from_numpy(rng.standard_normal((1, cfg.num_views, cfg.cam_dim))
+                            .astype(np.float32))
+    counters, plains = kernel_counters()
+    n_k2, tile = svrm_k2_launches(cfg), 128  # K2's keys per tile
+
+    def svrm_run(d, c, fault=None):
+        calls = []
+
+        def planted(q, k, v, *rest):
+            calls.append(None)
+            cut = (k.shape[1] - 1) // tile * tile
+            if (fault == "lost_tile_every" and cut) or (fault == "lost_tile_last"
+                                                        and len(calls) == n_k2):
+                k, v = k[:, :cut], v[:, :cut]
+            return real(q, k, v, *rest)
+
+        model = build_module(lambda: SVRM(c), torch.device(d), tree, 0)
+        real, svrm_mod.flash_sdpa = svrm_mod.flash_sdpa, planted
+        try:
+            with torch.inference_mode():
+                planes = model(views.to(d), cams.to(d))
+                if fault == "plane_swap":
+                    planes = planes[:, [0, 2, 1]]
+                sdf, _ = model.grid(planes[0])
+        finally:
+            svrm_mod.flash_sdpa = real
+        return {"planes": planes.float().cpu(), "sdf": sdf.float().cpu()}
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    out = {}
+    for d, c in (("cpu", cfg), ("cuda", cfg), ("cpu_f32", dataclasses.replace(
+            cfg, dtype=torch.float32))):
+        for k in (*counters.values(), *plains.values()):
+            k.reset()
+        out[d] = svrm_run(d.split("_")[0], c)
+        out[d]["k2"] = (counters["k2"].count, plains["k2"].count)
+    res = {"k2_launches": out["cuda"]["k2"][0], "k2_plain_calls": out["cuda"]["k2"][1]}
+    for name in ("planes", "sdf"):
+        res[f"bf16_floor_{name}"] = rel(out["cpu"][name], out["cpu_f32"][name])
+    caught = []
+    for fault, held in SVRM_FAULTS.items():
+        f = svrm_run("cuda", cfg, fault)
+        r = {n: rel(f[n], out["cpu"][n]) for n in ("planes", "sdf")}
+        res[f"fault_{fault}"] = json.dumps(r)
+        if held:
+            caught.append(max(r.values()) > HY_SVRM_REL_TOL)
+
+    mvs = {d: MVDStdViews(tiny=True, device=d, dtype=torch.float32) for d in ("cpu", "cuda")}
+    mv = mvs["cpu"]
+    trees = convert_mvd(
+        released_mvd_unet_state(mv.unet_cfg, seed + 1, std=0.1),
+        released_sd_vae_state(mv.vae_cfg, seed + 2, std=0.1),
+        released_clip_vision_state(mv.vision_cfgs[0], seed + 3, std=0.1),
+        released_clip_vision_state(mv.vision_cfgs[1], seed + 4, std=0.1),
+        uc_text_emb=rng.standard_normal((1, 77, mv.unet_cfg.context_dim)).astype(np.float32),
+        uc_text_emb_2=rng.standard_normal((1, mv.unet_cfg.pooled_dim)).astype(np.float32),
+        ramping_coefficients=np.linspace(0.0, 1.0, 77, dtype=np.float32),
+        unet_cfg=mv.unet_cfg, vae_cfg=mv.vae_cfg, vision_cfg=mv.vision_cfgs[0],
+        vision2_cfg=mv.vision_cfgs[1])
+    noise = {k: rng.standard_normal(s).astype(np.float32) for k, s in mv.draw_shapes().items()}
+    crop = trellis_crop(seed, 64)
+    for d, p in mvs.items():
+        p.set_params(trees)
+        out[d]["grid"] = p.generate_grid(crop, noise=noise).float().cpu()
+    for name in ("planes", "sdf", "grid"):
+        res[name] = rel(out["cuda"][name], out["cpu"][name])
+    res["grid_std_levels"] = float(out["cuda"]["grid"].std() * 255)
+    res["k2_want"] = svrm_k2_launches(cfg)
+    res["ok"] = (res["planes"] <= HY_SVRM_REL_TOL and res["sdf"] <= HY_SVRM_REL_TOL
+                 and res["grid"] <= HY_MVD_REL_TOL and res["grid_std_levels"] >= SD_MIN_STD_LEVELS
+                 and res["k2_launches"] == res["k2_want"] and res["k2_plain_calls"] == 0
+                 and all(caught))
+    return res
+
+
+def run_hunyuan(tmp: str) -> dict:
+    """Phase 13: (b) weights and the components, (c) the route, (d) card
+    against CPU; prints each part's lines ((a), K2 at SVRM's shapes, is in
+    phase 4). Returns the three results."""
+    comp = run_hunyuan_components()
+    _say("hunyuan:weights", s=comp["weights_s"], parameters=comp["parameters"])
+    _say("hunyuan:components", cold_s=json.dumps(comp["cold_s"]),
+         warm_s=json.dumps(comp["warm_s"]), launches=json.dumps(comp["launches"]),
+         want=json.dumps(comp["want"]), plain_calls=json.dumps(comp["plain_calls"]),
+         refs=comp["refs"], mesh=json.dumps(comp["mesh"]), sdf=json.dumps(comp["sdf"]),
+         views=json.dumps(comp["views"]), carve_mesh=json.dumps(comp["carve_mesh"]),
+         max_memory_gb=comp["max_memory_gb"])
+    p = comp["profile"]
+    _say("hunyuan:profile", reconstruct=json.dumps(p["reconstruct"]),
+         step=json.dumps(p["step"]), unet_read_by_op_ms=json.dumps(p["unet_read_by_op_ms"]))
+    if not comp["ok"]:
+        raise SystemExit("hunyuan components: launches, plain calls, shapes or the mesh are "
+                         "not as required (see hunyuan:components)")
+    route = run_hunyuan_route(tmp)
+    _say("hunyuan:route", s=route["s"], stage_s=json.dumps(route["stage_s"]),
+         launches=json.dumps(route["launches"]), want=json.dumps(route["want"]),
+         plain_calls=json.dumps(route["plain_calls"]), failures=json.dumps(route["failures"]),
+         forwards=route["forwards"], view_source=route["view_source"],
+         meshes=json.dumps(route["meshes"]), bad_glbs=json.dumps(route["bad_glbs"]),
+         scenes_with_boxes=json.dumps(route["scenes_with_boxes"]),
+         coco3d_images=json.dumps(route["coco3d_images"]), max_memory_gb=route["max_memory_gb"])
+    if not route["ok"]:
+        raise SystemExit("hunyuan route: launches, plain calls, GLBs or COCO3D are not as "
+                         "required (see hunyuan:route)")
+    check = hunyuan_card_vs_cpu()
+    _say("hunyuan:card_vs_cpu", **check, svrm_rel_tol=HY_SVRM_REL_TOL,
+         mvd_rel_tol=HY_MVD_REL_TOL, min_std_levels=SD_MIN_STD_LEVELS)
+    if not check["ok"]:
+        raise SystemExit("hunyuan: the card disagrees with the CPU (see hunyuan:card_vs_cpu)")
+    return {"components": comp, "route": route, "card_vs_cpu": check}
+
+
 def module_version(name: str) -> str:
     """An optional module's version, or "missing" (the overlay needs OpenCV)."""
     try:
@@ -2660,6 +3258,13 @@ def main() -> int:
         # configuration (with obj_rec=trellis), the card against the CPU.
         sd = run_sd(tmp)
         scomp, sroute = sd["components"], sd["route"]
+        torch.cuda.empty_cache()
+
+        # 13. Hunyuan3D (stage 6's hunyuan3d and hunyuan3d_carve): the
+        # components at full width, the all route with obj_rec=hunyuan3d,
+        # the card against the CPU.
+        hy = run_hunyuan(tmp)
+        hcomp, hroute = hy["components"], hy["route"]
 
     def row(name, source, replaces, launches, r, max_abs_err, **extra):
         return {"name": name, "route": "cuda", "source": f"labelany3d_tpu_torch/csrc/{source}",
@@ -2700,6 +3305,8 @@ def main() -> int:
             launches_trellis_object=tcomp["launches"]["k2"],
             launches_reference_route=sroute["launches"]["k2"],
             launches_elevation_estimates=scomp["launches"]["k2"],
+            launches_svrm_reconstructs=hcomp["launches"]["k2"],
+            launches_hunyuan_route=hroute["launches"]["k2"],
             shape="q, k, v (32, 1296, 12, 64) bf16", design=design,
             ratio_to_library=k2["path"]["ratio_to_library"],
             share_of_bound=k2["path"]["share_of_bound"], sass=sass["k2"],
@@ -2707,7 +3314,8 @@ def main() -> int:
                for name in ("rope_encoder", "rope_encoder_stage_b", "decoder_1024",
                             "stage_b_1024", "trellis_ss_self", "trellis_ss_cross",
                             "trellis_slat_self", "trellis_slat_cross",
-                            "trellis_slat_self_unmasked", "elevation_decoder")}),
+                            "trellis_slat_self_unmasked", "elevation_decoder",
+                            "svrm_encoder", "svrm_lrm_self", "svrm_lrm_cross")}),
         row("nn_argmax", "nn_argmax.cu", "labelany3d_tpu/ops/reciprocal_nn.py:29",
             reg["launches"]["k3"], k3["path_bf16"], max(r["max_abs_err"] for r in k3.values()),
             launches_reference_chain=ref["launches"]["k3"],

@@ -2,7 +2,9 @@
 
 Counterpart of `labelany3d_tpu/models/clip.py`. The diffusion pipelines
 condition on them: the amodal completion and InvSR on CLIP text
-embeddings, Zero123 on CLIP vision image embeddings. Module names follow
+embeddings, Zero123 on CLIP vision image embeddings, the Hunyuan3D
+multi-view diffusion on two vision towers (ViT-L/14 and ViT-bigG/14).
+Module names follow
 the Flax tree (`layer{i}.self_attn.q_proj`, `final_layer_norm`), so
 `models/weights.py` carries parameters across; released `transformers`
 state dicts go through `convert_clip_text` / `convert_clip_vision`.
@@ -71,6 +73,14 @@ class CLIPVisionConfig:
         """openai/clip-vit-large-patch14 vision tower (Zero123's image
         conditioner at 224^2)."""
         return CLIPVisionConfig(**kw)
+
+    @staticmethod
+    def bigg14(**kw) -> "CLIPVisionConfig":
+        """laion/CLIP-ViT-bigG-14 vision tower (the Hunyuan3D mvd_std
+        pipeline's `vision_encoder_2`): exact-erf GELU, 1280-dim
+        projection."""
+        return CLIPVisionConfig(width=1664, depth=48, num_heads=16, mlp_ratio=8192 / 1664,
+                                projection_dim=1280, hidden_act="gelu", **kw)
 
     @staticmethod
     def tiny_test(**kw) -> "CLIPVisionConfig":

@@ -1,8 +1,8 @@
 """Diffusers-name Stable Diffusion UNet / VAE / Zero123 -> Flax-layout trees.
 
-Counterpart of `labelany3d_tpu/models/diffusion/convert.py` (its SDXL and
-Hunyuan3D `convert_mvd` wait for the port of `mvd.py`). `UNet2D` and
-`AutoencoderKL` are graph-compatible with diffusers' SD-1.x modules, so
+Counterpart of `labelany3d_tpu/models/diffusion/convert.py`, the SDXL
+`convert_mvd_unet` and the Hunyuan3D `convert_mvd` included. `UNet2D`,
+`MVDUNet` and `AutoencoderKL` are graph-compatible with diffusers' modules, so
 conversion is a pure name mapping into the Flax parameter tree, which
 `models/weights.py::flax_to_state_dict` then carries into the port's
 modules. `state`: name -> numpy array (or anything `np.asarray` takes).
@@ -156,6 +156,110 @@ def convert_sd_unet(state: dict, cfg) -> dict:
         if lvl > 0:
             p[f"up{lvl}_us"] = _conv(state, pre + "upsamplers.0.conv.")
     return p
+
+
+def _transformer_sdxl(state: dict, pre: str, depth: int) -> dict:
+    """SDXL `Transformer2DModel`: linear proj_in/out and `depth`
+    transformer_blocks -> `mvd.MVDTransformer` params."""
+    p = {
+        "norm": _norm(state, pre + "norm."),
+        "proj_in": _lin(state, pre + "proj_in."),
+        "proj_out": _lin(state, pre + "proj_out."),
+    }
+    for d in range(depth):
+        tb = pre + f"transformer_blocks.{d}."
+        p.update({
+            f"b{d}_ln1": _norm(state, tb + "norm1."),
+            f"b{d}_self_q": _lin(state, tb + "attn1.to_q."),
+            f"b{d}_self_k": _lin(state, tb + "attn1.to_k."),
+            f"b{d}_self_v": _lin(state, tb + "attn1.to_v."),
+            f"b{d}_self_proj": _lin(state, tb + "attn1.to_out.0."),
+            f"b{d}_ln2": _norm(state, tb + "norm2."),
+            f"b{d}_cross_q": _lin(state, tb + "attn2.to_q."),
+            f"b{d}_cross_k": _lin(state, tb + "attn2.to_k."),
+            f"b{d}_cross_v": _lin(state, tb + "attn2.to_v."),
+            f"b{d}_cross_proj": _lin(state, tb + "attn2.to_out.0."),
+            f"b{d}_ln3": _norm(state, tb + "norm3."),
+            f"b{d}_geglu": _lin(state, tb + "ff.net.0.proj."),
+            f"b{d}_ff_out": _lin(state, tb + "ff.net.2."),
+        })
+    return p
+
+
+def convert_mvd_unet(state: dict, cfg) -> dict:
+    """diffusers SDXL `UNet2DConditionModel` state dict (Hunyuan3D's
+    `weights/mvd_std/unet`) -> Flax params for `mvd.MVDUNet(cfg)`."""
+    n_levels = len(cfg.widths)
+    p: dict = {
+        "in_conv": _conv(state, "conv_in."),
+        "t1": _lin(state, "time_embedding.linear_1."),
+        "t2": _lin(state, "time_embedding.linear_2."),
+        "add1": _lin(state, "add_embedding.linear_1."),
+        "add2": _lin(state, "add_embedding.linear_2."),
+        "mid_res1": _resnet(state, "mid_block.resnets.0."),
+        "mid_attn": _transformer_sdxl(state, "mid_block.attentions.0.",
+                                      cfg.transformer_depth[-1]),
+        "mid_res2": _resnet(state, "mid_block.resnets.1."),
+        "norm_out": _norm(state, "conv_norm_out."),
+        "out_conv": _conv(state, "conv_out."),
+    }
+    for lvl in range(n_levels):
+        pre = f"down_blocks.{lvl}."
+        for i in range(cfg.num_res_blocks):
+            p[f"down{lvl}_res{i}"] = _resnet(state, pre + f"resnets.{i}.")
+            if lvl in cfg.attn_levels:
+                p[f"down{lvl}_attn{i}"] = _transformer_sdxl(
+                    state, pre + f"attentions.{i}.", cfg.transformer_depth[lvl])
+        if lvl < n_levels - 1:
+            p[f"down{lvl}_ds"] = _conv(state, pre + "downsamplers.0.conv.")
+    for u in range(n_levels):
+        lvl = n_levels - 1 - u  # diffusers up_blocks[0] is the deepest level
+        pre = f"up_blocks.{u}."
+        for i in range(cfg.num_res_blocks + 1):
+            p[f"up{lvl}_res{i}"] = _resnet(state, pre + f"resnets.{i}.")
+            if lvl in cfg.attn_levels:
+                p[f"up{lvl}_attn{i}"] = _transformer_sdxl(
+                    state, pre + f"attentions.{i}.", cfg.transformer_depth[lvl])
+        if lvl > 0:
+            p[f"up{lvl}_us"] = _conv(state, pre + "upsamplers.0.conv.")
+    return p
+
+
+def convert_mvd(unet_state: dict | None = None, vae_state: dict | None = None,
+                vision_state: dict | None = None, vision2_state: dict | None = None,
+                uc_text_emb=None, uc_text_emb_2=None, ramping_coefficients=None,
+                unet_cfg=None, vae_cfg=None, vision_cfg=None, vision2_cfg=None,
+                unet_cfg_json: dict | None = None) -> dict:
+    """Assembled converter for the Hunyuan3D `weights/mvd_std` pipeline: the
+    SDXL unet, the AutoencoderKL, two CLIPVisionModelWithProjection towers
+    (ViT-L/14, ViT-bigG/14), the precomputed uc_text_emb{,_2} and the
+    config's ramping_coefficients. Omitted components are left out. Returns
+    Flax-layout trees for `MVDStdViews.set_params`."""
+    from labelany3d_tpu_torch.models.diffusion.mvd import MVDUNetConfig
+    from labelany3d_tpu_torch.models.diffusion.vae import VAEConfig
+
+    out: dict = {}
+    if unet_state is not None:
+        if unet_cfg is None:
+            unet_cfg = (MVDUNetConfig.from_hf_json(unet_cfg_json) if unet_cfg_json
+                        else MVDUNetConfig())
+        out["unet"] = convert_mvd_unet(unet_state, unet_cfg)
+    if vae_state is not None:
+        out["vae"] = convert_sd_vae(vae_state, vae_cfg or VAEConfig())
+    if vision_state is not None or vision2_state is not None:
+        from labelany3d_tpu_torch.models.clip import CLIPVisionConfig, convert_clip_vision
+
+        if vision_state is not None:
+            out["vision"] = convert_clip_vision(vision_state,
+                                                vision_cfg or CLIPVisionConfig.vitl14())
+        if vision2_state is not None:
+            out["vision_2"] = convert_clip_vision(vision2_state,
+                                                  vision2_cfg or CLIPVisionConfig.bigg14())
+    for key, val in (("uc_text_emb", uc_text_emb), ("uc_text_emb_2", uc_text_emb_2),
+                     ("ramping_coefficients", ramping_coefficients)):
+        if val is not None:
+            out[key] = np.asarray(val, np.float32)
+    return out
 
 
 def convert_zero123(

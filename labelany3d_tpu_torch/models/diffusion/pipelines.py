@@ -49,26 +49,9 @@ from labelany3d_tpu_torch.models.diffusion.sampler import (
 from labelany3d_tpu_torch.models.diffusion.unet import UNet2D, UNetConfig, init_unet_
 from labelany3d_tpu_torch.models.diffusion.vae import AutoencoderKL, VAEConfig
 from labelany3d_tpu_torch.models.layers import Dense, resize, resize_bicubic_8bit
-from labelany3d_tpu_torch.models.weights import (
-    flax_to_state_dict,
-    hold_in_compute_dtype_,
-    init_params_,
-)
+from labelany3d_tpu_torch.models.weights import build_module
 from labelany3d_tpu_torch.utils.device import resolve_device
 from labelany3d_tpu_torch.utils.logging import warn_once
-
-
-def _build(make, device: torch.device, tree, seed: int, init=init_params_) -> nn.Module:
-    """`make()` on `device`, loaded from the Flax-layout `tree` or random
-    from a generator seeded with `seed`; weights held in the dtype each
-    layer computes in; frozen."""
-    with torch.device(device):
-        model = make()
-    if tree is not None:
-        model.load_state_dict(flax_to_state_dict(tree, model))
-    else:
-        init(model, torch.Generator(device=device).manual_seed(seed))
-    return hold_in_compute_dtype_(model).eval().requires_grad_(False)
 
 
 def _with_dtype(cfg, dtype):
@@ -124,8 +107,8 @@ class TextConditioner:
                           "text conditioning runs a random-initialized CLIP text encoder (no "
                           "converted weights installed): diffusion outputs are not "
                           "prompt-faithful")
-            self.model = _build(lambda: CLIPTextEncoder(self.cfg), self.device, self.params,
-                                self._seed, init_clip_)
+            self.model = build_module(lambda: CLIPTextEncoder(self.cfg), self.device,
+                                      self.params, self._seed, init_clip_)
             self.params = None  # the model holds them now
         if getattr(self.tokenizer, "is_fallback", False):
             warn_once("clip_tokenizer_fallback",
@@ -183,10 +166,10 @@ class _Base:
         unet_tree, vae_tree = self._trees.pop("unet", None), self._trees.pop("vae", None)
         if unet_tree is None:
             self._random(f"{type(self).__name__}_random", type(self).__name__)
-        self.unet = _build(lambda: UNet2D(self.unet_cfg), self.device, unet_tree, self.seed,
-                           init_unet_)
-        self.vae = _build(lambda: AutoencoderKL(self.vae_cfg), self.device, vae_tree,
-                          self.seed)
+        self.unet = build_module(lambda: UNet2D(self.unet_cfg), self.device, unet_tree,
+                                 self.seed, init_unet_)
+        self.vae = build_module(lambda: AutoencoderKL(self.vae_cfg), self.device, vae_tree,
+                                self.seed)
 
     def _ensure(self) -> None:
         if self.unet is None:
@@ -249,8 +232,8 @@ class InvSREnhance(_Base):
             cfg = self.noise_predictor
             if self._np_params is None:
                 self._random("invsr_noise_predictor_random", "InvSR noise predictor")
-            self.noise_predictor = _build(lambda: NoisePredictor(cfg), self.device,
-                                          self._np_params, self.seed + 3)
+            self.noise_predictor = build_module(lambda: NoisePredictor(cfg), self.device,
+                                                self._np_params, self.seed + 3)
             self._np_params = None
         return self.noise_predictor
 
@@ -380,9 +363,10 @@ class Zero123NovelView(_Base):
     def init_params(self) -> None:
         super().init_params()
         vc = self.vision_cfg
-        self.image_encoder = _build(lambda: CLIPVisionEncoder(vc), self.device,
-                                    self._trees.pop("vision", None), self.seed + 1, init_clip_)
-        self.cc_projection = _build(
+        self.image_encoder = build_module(lambda: CLIPVisionEncoder(vc), self.device,
+                                          self._trees.pop("vision", None), self.seed + 1,
+                                          init_clip_)
+        self.cc_projection = build_module(
             lambda: _CCProjection(vc.projection_dim or vc.width, self.unet_cfg.context_dim),
             self.device, self._trees.pop("cc", None), self.seed + 2)
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -148,6 +149,30 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2).to(q.dtype)
 
 
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic kernel with a = -0.5 at distances x >= 0."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def _bicubic_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """(n_out, n_in) float32 weights of one axis of `jax.image.resize(...,
+    'bicubic', antialias=False)` (`scale_and_translate`'s weight matrix):
+    half-pixel centres, Keys' kernel not widened, renormalised over the taps
+    inside the image, zero for a sample outside it."""
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) \
+        * (n_in / n_out) - 0.5
+    dist = (sample[:, None] - torch.arange(n_in, dtype=torch.float32, device=device)).abs()
+    w = _keys_cubic(dist)
+    total = w.sum(-1, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[:, None], w, torch.zeros_like(w))
+
+
 def resize(x: torch.Tensor, size: tuple[int, int], method: str = "bilinear",
            antialias: bool = True) -> torch.Tensor:
     """NCHW resize with half-pixel centres, as `jax.image.resize` (whose
@@ -155,10 +180,15 @@ def resize(x: torch.Tensor, size: tuple[int, int], method: str = "bilinear",
     scale and renormalises it over the taps inside the image, and 'bicubic'
     is Keys' kernel with a = -0.5. PyTorch's antialiased modes compute the
     same weights. Antialiasing changes nothing on an upsampled axis, so a
-    bilinear upsample takes PyTorch's plain path (any dtype); bicubic always
-    takes the antialiased one, since PyTorch's plain bicubic uses a = -0.75."""
+    bilinear upsample takes PyTorch's plain path (any dtype); bicubic takes
+    the antialiased one, since PyTorch's plain bicubic uses a = -0.75.
+    Bicubic without antialias (the SVRM encoder's position grid) applies
+    JAX's weight matrices on both axes in float32 (`_bicubic_weights`)."""
     if method == "bicubic" and not antialias:
-        raise ValueError("bicubic without antialias has no PyTorch counterpart of JAX's")
+        wh = _bicubic_weights(x.shape[-2], size[0], x.device)
+        ww = _bicubic_weights(x.shape[-1], size[1], x.device)
+        with full_f32():
+            return torch.einsum("oh,nchw,pw->ncop", wh, x.float(), ww).to(x.dtype)
     down = size[0] < x.shape[-2] or size[1] < x.shape[-1]
     return F.interpolate(x, size=tuple(size), mode=method, align_corners=False,
                          antialias=method == "bicubic" or (antialias and down))
@@ -188,3 +218,14 @@ def resize_bilinear_8bit(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor
     filter, widened by the scale and renormalised when downsampling (PyTorch's
     antialiased bilinear), plain bilinear when upsampling (the same weights)."""
     return _resize_8bit(x, size, "bilinear")
+
+
+def white_composite(rgba: np.ndarray) -> np.ndarray:
+    """uint8 (H, W, 3 or 4) -> uint8 RGB over a white background, in the
+    JAX package's numpy arithmetic (float32, truncated)."""
+    img = np.asarray(rgba)
+    rgb = img[..., :3]
+    if img.shape[-1] == 4:
+        a = img[..., 3:4].astype(np.float32) / 255.0
+        rgb = (rgb * a + 255.0 * (1.0 - a)).astype(np.uint8)
+    return rgb

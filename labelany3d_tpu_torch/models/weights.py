@@ -154,3 +154,16 @@ def flax_to_state_dict(params, model: nn.Module) -> dict[str, torch.Tensor]:
     if missing:
         raise KeyError(f"model parameters missing from the Flax tree: {missing}")
     return out
+
+
+def build_module(make, device: torch.device, tree, seed: int, init=init_params_) -> nn.Module:
+    """`make()` on `device`, loaded from the Flax-layout `tree` or random
+    from a generator seeded with `seed` through `init`; weights held in the
+    dtype each layer computes in; frozen."""
+    with torch.device(device):
+        model = make()
+    if tree is not None:
+        model.load_state_dict(flax_to_state_dict(tree, model))
+    else:
+        init(model, torch.Generator(device=device).manual_seed(seed))
+    return hold_in_compute_dtype_(model).eval().requires_grad_(False)

@@ -4,7 +4,9 @@ Counterpart of `labelany3d_tpu/ops/marching_cubes.py`: each grid cell splits
 into 6 tetrahedra around its 0-6 diagonal; each tet emits up to 2 triangles
 into fixed slots through a 16-case table, so extraction is one batched
 gather program. The tables also serve
-`models/trellis/decoders.py::flexicubes_to_mesh`.
+`models/trellis/decoders.py::flexicubes_to_mesh`. `marching_cubes_mesh`
+compacts the slots into an indexed mesh (the SVRM and space-carving
+backends).
 """
 
 from __future__ import annotations
@@ -74,3 +76,24 @@ def marching_cubes(field: torch.Tensor, iso: float = 0.0):
                         row.clamp_min(0)[..., None].expand(-1, -1, -1, -1, 3))
     tris = torch.where(tvalid[..., None, None], tris, torch.zeros_like(tris))
     return tris.reshape(-1, MAX_TRIS_PER_CELL, 3, 3), tvalid.reshape(-1, MAX_TRIS_PER_CELL)
+
+
+def marching_cubes_mesh(field, iso: float = 0.0):
+    """Compacted (vertices (V, 3) float32, faces (F, 3) int32) numpy mesh of
+    a scalar field (a tensor on any device, or an array), as the JAX
+    package's: vertices deduplicated on keys rounded at 1e-5 grid units,
+    each the mean of its merged positions (in float64), faces that lost a
+    corner to the merge dropped. Vertex order is the keys' lexicographic
+    order, as `np.unique(axis=0)` gives."""
+    tris, valid = marching_cubes(torch.as_tensor(field), iso)
+    flat = tris[valid].reshape(-1, 3)
+    if flat.shape[0] == 0:
+        return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32)
+    keys = torch.round(flat * 1e5).long()
+    uniq, inverse = torch.unique(keys, dim=0, return_inverse=True)
+    verts = torch.zeros((len(uniq), 3), dtype=torch.float64, device=flat.device)
+    verts.index_add_(0, inverse, flat.double())
+    verts /= torch.bincount(inverse, minlength=len(uniq))[:, None]
+    faces = inverse.reshape(-1, 3)
+    good = (faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2]) & (faces[:, 0] != faces[:, 2])
+    return (verts.float().cpu().numpy(), faces[good].int().cpu().numpy())

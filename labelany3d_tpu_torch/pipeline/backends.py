@@ -7,8 +7,8 @@ DepthPro, conditioned on MoGe's focal, gives metric depth),
 `TorchMatcherBackend` mirrors `JaxMatcherBackend` (TwoViewMatcher +
 reciprocal NN) for the layout stage's registration. The stage-2 to stage-6
 factories give the shipping defaults, the SD-class backends (`invsr`,
-`our`, `zero123`), TRELLIS for stage 6's `obj_rec=trellis`, and raise for
-the Hunyuan3D backends, which are not ported.
+`our`, `zero123`), and stage 6's TRELLIS (`obj_rec=trellis`) and Hunyuan3D
+(`obj_rec=hunyuan3d`, `hunyuan3d_carve`) backends.
 """
 
 from __future__ import annotations
@@ -321,17 +321,9 @@ def make_depth(preset: str = "large", **kw) -> TorchDepthBackend:
                              DepthProConfig(backbone=backbone()), **kw)
 
 
-# The generative backends of stages 2 to 6 that are not ported, and where
-# ROADMAP.md queue 1 has them. Their names raise instead of falling back.
-_NOT_PORTED = {"hunyuan3d": "item 7, Hunyuan3D", "hunyuan3d_carve": "item 7, Hunyuan3D"}
-
-
 def _shipping_default(kind: str, backend: str, default: str, make):
     """`make()` for the stage's shipping-default backend name; raise for any
     other."""
-    if backend in _NOT_PORTED:
-        raise NotImplementedError(f"{kind} backend {backend!r} is not ported yet "
-                                  f"(ROADMAP.md queue 1 {_NOT_PORTED[backend]})")
     if backend != default:
         raise ValueError(f"Unknown {kind} backend {backend!r}")
     return make()
@@ -391,16 +383,42 @@ def make_elevation(backend: str = "zero", tiny: bool = False, device=None, seed:
 
 
 def make_reconstruction(backend: str = "silhouette", tiny: bool = False, device=None,
-                        seed: int = 0, **_kw):
-    """'silhouette' (the shipping default) or 'trellis': a `TrellisPipeline`
-    on `device` at `TrellisPipelineConfig()` with its weights held in bf16,
-    or at `tiny_test()` in float32 with `tiny`, its weights random from
-    `seed`. 'hunyuan3d' and 'hunyuan3d_carve' are not ported."""
+                        seed: int = 0, views: str = "mvd", **_kw):
+    """Stage 6's backends, their weights random from `seed`:
+
+      * 'silhouette' (the shipping default);
+      * 'trellis': a `TrellisPipeline` at `TrellisPipelineConfig()` with its
+        weights held in bf16, or at `tiny_test()` in float32 with `tiny`;
+      * 'hunyuan3d': `SVRMReconstruction` at `SVRMConfig()` (`tiny_test()`
+        with `tiny`) over the mvd_std grid diffusion's six views
+        (`MVDStdViews`, the reference's view source), or with
+        `views='zero123'` over `Zero123NovelView` views (256 px, 64 with
+        `tiny`);
+      * 'hunyuan3d_carve': `SpaceCarveReconstruction` (visual hull) over
+        `Zero123NovelView` views."""
     if backend == "trellis":
         from labelany3d_tpu_torch.models.trellis import TrellisPipeline, TrellisPipelineConfig
 
         return TrellisPipeline(TrellisPipelineConfig.tiny_test() if tiny else None, seed=seed,
                                params_dtype=None if tiny else torch.bfloat16, device=device)
+    if backend in ("hunyuan3d", "hunyuan3d_carve"):
+        from labelany3d_tpu_torch.models.diffusion import MVDStdViews, Zero123NovelView
+
+        if backend == "hunyuan3d" and views == "mvd":
+            nv = MVDStdViews(tiny=tiny, seed=seed, device=device)
+        elif views in ("mvd", "zero123"):
+            nv = Zero123NovelView(tiny=tiny, image_size=64 if tiny else 256, seed=seed,
+                                  device=device)
+        else:
+            raise ValueError(f"Unknown hunyuan3d view source {views!r} (choose mvd | zero123)")
+        if backend == "hunyuan3d_carve":
+            from labelany3d_tpu_torch.models.spacecarve import SpaceCarveReconstruction
+
+            return SpaceCarveReconstruction(novel_views=nv, device=device)
+        from labelany3d_tpu_torch.models.svrm import SVRMConfig, SVRMReconstruction
+
+        return SVRMReconstruction(novel_views=nv, cfg=SVRMConfig.tiny_test() if tiny else None,
+                                  seed=seed, device=device)
     from labelany3d_tpu_torch.pipeline.stages.generative import SilhouetteExtrude
 
     return _shipping_default("obj_rec", backend, "silhouette", SilhouetteExtrude)

@@ -18,8 +18,9 @@ plus dotted `key=value` config overrides. Stages:
 
 The port has the shipping-default backend of each of stages 2, 4, 5 and 6,
 the SD-class backends of stages 2, 4 and 5 (`run.enhance=invsr`,
-`run.amodal_completion=our`, `run.elevation=zero123`) and TRELLIS for stage
-6 (`run.obj_rec=trellis`); the Hunyuan3D ones raise. Unlike the JAX runner,
+`run.amodal_completion=our`, `run.elevation=zero123`), and TRELLIS and
+Hunyuan3D for stage 6 (`run.obj_rec=trellis`, `hunyuan3d`,
+`hunyuan3d_carve`). Unlike the JAX runner,
 `all` keeps every stage's models loaded. Runs on CUDA; `--device cpu` runs
 the plain PyTorch path on the CPU. The JAX runner's `--wild` mode is not
 ported.

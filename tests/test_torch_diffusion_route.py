@@ -3,7 +3,8 @@ against the JAX package on the CPU in float32.
 
   * The three factories: `make_enhance("invsr")`, `make_completion("our")`
     (and with `segment="isnet"`) and `make_elevation("zero123")` build the
-    ported backends as the JAX factories do; Hunyuan3D still raises.
+    ported backends as the JAX factories do; Hunyuan3D's names build too
+    (tests/test_torch_hunyuan_route.py holds them to the JAX factories).
   * `run_stages("all")` with `run.enhance=invsr`, `run.amodal_completion=our`
     and `run.elevation=zero123` at `models.tiny` on one 256-px scene with one
     object, the samplers at 2 steps on both sides: its enhanced image and
@@ -73,9 +74,11 @@ def test_factories_build_the_sd_backends():
         assert seg.cfg == tsal.ISNetConfig.general_use() and seg.model is None
     finally:
         unload_all_models()
-    for name in ("hunyuan3d", "hunyuan3d_carve"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-            backends.make_reconstruction(name)
+    for name, cls in (("hunyuan3d", "SVRMReconstruction"),
+                      ("hunyuan3d_carve", "SpaceCarveReconstruction")):
+        assert type(backends.make_reconstruction(name, device="cpu")).__name__ == cls
+    with pytest.raises(ValueError, match="hunyuan4d"):
+        backends.make_reconstruction("hunyuan4d", device="cpu")
 
 
 ROUTE_HW = (256, 256)

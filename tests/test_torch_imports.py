@@ -44,6 +44,11 @@ def test_import_leaves_jax_out():
         "import labelany3d_tpu_torch.models.diffusion.convert\n"
         "import labelany3d_tpu_torch.models.saliency\n"
         "import labelany3d_tpu_torch.models.elevation\n"
+        "import labelany3d_tpu_torch.models.svrm\n"
+        "import labelany3d_tpu_torch.models.spacecarve\n"
+        "import labelany3d_tpu_torch.models.diffusion.mvd\n"
+        "import labelany3d_tpu_torch.ops.sampling\n"
+        "import labelany3d_tpu_torch.ops.knn\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
     )
@@ -81,6 +86,10 @@ def test_source_scan_finds_no_forbidden_import():
     assert {"clip.py", "saliency.py", "elevation.py"} <= \
         {f.name for f in files if f.parent.name == "models"}
     assert (PKG / "data" / "bpe.py") in files
+    # The Hunyuan3D path is scanned too.
+    assert {"svrm.py", "spacecarve.py"} <= {f.name for f in files if f.parent.name == "models"}
+    assert (PKG / "models" / "diffusion" / "mvd.py") in files
+    assert {"sampling.py", "knn.py"} <= {f.name for f in files if f.parent.name == "ops"}
     bad = [(f.name, m) for f in files for m in _imports(f) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 
@@ -159,3 +168,23 @@ def test_sd_entry_points_default_to_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     assert make_elevation("zero123", tiny=True, device="cpu").novel_views.device.type == "cpu"
+
+
+def test_hunyuan_entry_points_default_to_cuda(monkeypatch):
+    """Stage 6's Hunyuan3D backends and their models run on CUDA unless the
+    caller passes "cpu"; nothing falls back."""
+    from labelany3d_tpu_torch.models.diffusion import MVDStdViews
+    from labelany3d_tpu_torch.models.spacecarve import SpaceCarveReconstruction
+    from labelany3d_tpu_torch.models.svrm import SVRMReconstruction
+    from labelany3d_tpu_torch.pipeline.backends import make_reconstruction
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: make_reconstruction("hunyuan3d", tiny=True),
+                 lambda: make_reconstruction("hunyuan3d", tiny=True, views="zero123"),
+                 lambda: make_reconstruction("hunyuan3d_carve", tiny=True),
+                 lambda: MVDStdViews(tiny=True), lambda: SVRMReconstruction(),
+                 lambda: SpaceCarveReconstruction()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    rec = make_reconstruction("hunyuan3d", tiny=True, device="cpu")
+    assert rec.device.type == rec.novel_views.device.type == "cpu"

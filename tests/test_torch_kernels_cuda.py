@@ -93,6 +93,34 @@ def test_flash_attention_kernel_trellis_shapes(b, sq, sk, masked):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,heads", [
+    (7, 1297, 1297, 12),     # SVRM's encoder: 7 views of 1 + 36^2 tokens (odd Sq)
+    (1, 12288, 12288, 16),   # an LRM block's self-attention over 3 x 64^2 plane tokens
+    (1, 12288, 9079, 16),    # its cross-attention to the 7 x 1297 view tokens
+])
+def test_flash_attention_kernel_svrm_shapes(b, sq, sk, heads):
+    _flash_check(b, sq, sk, None, False, heads=heads)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_reads_fused_qkv_columns():
+    """SVRM's encoder splits one (B, S, 3W) projection: q, k and v are
+    column views of it (row stride 3W), read in place."""
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    qkv = torch.randn(7, 1297, 3 * 768, device="cuda", generator=g).bfloat16()
+    q, k, v = (qkv[..., i * 768:(i + 1) * 768].unflatten(-1, (12, 64)) for i in range(3))
+    launches = port.FLASH_LAUNCHES.count
+    got = port.flash_sdpa(q, k, v).float()
+    torch.cuda.synchronize()
+    assert port.FLASH_LAUNCHES.count == launches + 1
+    want = port.flash_sdpa_reference(q.float(), k.float(), v.float())
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= MAX_ABS_TOL
+    assert ((got - want).norm() / want.norm()).item() <= REL_TOL
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,n_pad,n_real,heads", [
     (2, 1152, 1025, 2),   # the elevation matcher's tiny ViT: 256^2 views, patch 8, + cls
     (2, 128, 65, 2),      # the same at the tiny factory's 64-px views

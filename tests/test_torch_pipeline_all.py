@@ -81,11 +81,16 @@ def test_generative_backends_not_ported_raise():
     reg = default_registry()
     # TRELLIS ("trellis") is ported: tests/test_torch_trellis_pipeline.py; the
     # SD-class backends ("invsr", "our", "zero123") too:
-    # tests/test_torch_diffusion_pipelines.py. Hunyuan3D's names still raise.
-    for kind, name in (("reconstruction", "hunyuan3d"), ("reconstruction", "hunyuan3d_carve")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-            reg.get(kind, backend=name)
-        reg = default_registry()  # nothing cached after a raise, but start clean
+    # tests/test_torch_diffusion_pipelines.py; and Hunyuan3D's
+    # ("hunyuan3d", "hunyuan3d_carve"): tests/test_torch_hunyuan_route.py.
+    # Every stage-6 name builds; an unknown one raises.
+    for name, cls in (("hunyuan3d", "SVRMReconstruction"),
+                      ("hunyuan3d_carve", "SpaceCarveReconstruction")):
+        assert type(default_registry().get("reconstruction", backend=name, tiny=True,
+                                           device="cpu")).__name__ == cls
+    with pytest.raises(ValueError, match="hunyuan4d"):
+        reg.get("reconstruction", backend="hunyuan4d")
+    reg = default_registry()  # nothing cached after a raise, but start clean
     for kind, name, cls in (("enhance", "invsr", "InvSREnhance"),
                             ("completion", "our", "AmodalCompletion"),
                             ("elevation", "zero123", "MatchingElevationEstimator")):
@@ -204,9 +209,10 @@ def test_runner_main_all_route(tmp_path):
     assert boxes and all(np.isfinite(b["bbox3D_cam"]).all() for b in boxes)
     coco = json.loads((out / "COCO3D_val.json").read_text())
     assert len(coco["images"]) == 1 and len(coco["annotations"]) == len(boxes)
-    # The CLI reaches the generative factories with its run options: InvSR is
-    # ported (the enhanced image exists, so the stage resumes past it), and
-    # Hunyuan3D's name raises.
+    # The CLI reaches the generative factories with its run options: InvSR and
+    # Hunyuan3D are ported (the enhanced image and the meshes exist, so the
+    # stages resume past them), and an unknown stage-6 name raises.
     assert runner.main(["enhance", *common, "run.enhance=invsr"], device="cpu") == 0
-    with pytest.raises(NotImplementedError, match="hunyuan3d"):
-        runner.main(["reconstruction", *common, "run.obj_rec=hunyuan3d"], device="cpu")
+    assert runner.main(["reconstruction", *common, "run.obj_rec=hunyuan3d"], device="cpu") == 0
+    with pytest.raises(ValueError, match="hunyuan4d"):
+        runner.main(["reconstruction", *common, "run.obj_rec=hunyuan4d"], device="cpu")

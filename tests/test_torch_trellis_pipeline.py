@@ -231,9 +231,10 @@ def test_make_reconstruction_trellis(monkeypatch):
     full = make_reconstruction("trellis", device="cpu")
     assert full.cfg.max_voxels == 8192 and full._params_dtype == torch.bfloat16
     assert full.models is None  # built on first use
-    for name in ("hunyuan3d", "hunyuan3d_carve"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-            make_reconstruction(name)
+    for name in ("hunyuan3d", "hunyuan3d_carve"):  # ported: tests/test_torch_hunyuan_route.py
+        assert make_reconstruction(name, device="cpu").novel_views is not None
+    with pytest.raises(ValueError, match="hunyuan4d"):
+        make_reconstruction("hunyuan4d", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_reconstruction("trellis", tiny=True)
