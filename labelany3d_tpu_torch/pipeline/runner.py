@@ -22,8 +22,14 @@ the SD-class backends of stages 2, 4 and 5 (`run.enhance=invsr`,
 Hunyuan3D for stage 6 (`run.obj_rec=trellis`, `hunyuan3d`,
 `hunyuan3d_carve`). Unlike the JAX runner,
 `all` keeps every stage's models loaded. Runs on CUDA; `--device cpu` runs
-the plain PyTorch path on the CPU. The JAX runner's `--wild` mode is not
-ported.
+the plain PyTorch path on the CPU.
+
+`--wild` is the in-the-wild mode: `--dataset_root` is a plain image folder
+(`DirectoryLoader`), and the fused, crop and box stages take their
+instances from the wild segmentation stack (`data/wild.py`:
+`run.wild_segmentation` color | sam, `run.wild_foreground` border |
+semantic | clipseg, `run.wild_tagger` constant | clip, weights from
+`models.{sam,segformer,clipseg,clip}_path`) instead of COCONUT annotations.
 """
 
 from __future__ import annotations
@@ -49,6 +55,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_dir", default="../experimental_results/COCO/")
     p.add_argument("--dataset_root", default="../dataset/coco")
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
+    p.add_argument(
+        "--wild", action="store_true",
+        help="in-the-wild mode: --dataset_root is a plain image folder; instances come "
+             "from the wild segmentation stack instead of COCONUT annotations")
     return p
 
 
@@ -56,7 +66,8 @@ def run_stages(stage: str, cfg: PipelineConfig, loader, source, save_dir: str, s
                start_index: int, end_index: int, *, backend=None, matcher=None,
                enhance=None, completion=None, elevation=None,
                run_options: dict | None = None, preset: str = "large", tiny: bool = False,
-               device=None, timer: StageTimer | None = None, stages: dict | None = None) -> dict:
+               device=None, timer: StageTimer | None = None, stages: dict | None = None,
+               instance_provider=None) -> dict:
     """Run one route over an index range; returns {stage: count}.
 
     `backend` defaults to `make_depth(preset)` pinned to the first bucket,
@@ -71,7 +82,9 @@ def run_stages(stage: str, cfg: PipelineConfig, loader, source, save_dir: str, s
     weights seeded from `cfg.seed`, as the JAX runner's `_backend` passes
     `tiny` to every factory.
     `stages`, when given, receives each stage object by name (a caller can
-    read `stages["layout"].failures`)."""
+    read `stages["layout"].failures`). `instance_provider` (wild mode's
+    `WildInstanceProvider`) goes to the fused, crop and box stages, as the
+    JAX runner passes it; by default they read COCONUT annotations."""
     from labelany3d_tpu_torch.pipeline.backends import default_registry
     from labelany3d_tpu_torch.pipeline.stages import (
         BoxStage,
@@ -101,7 +114,8 @@ def run_stages(stage: str, cfg: PipelineConfig, loader, source, save_dir: str, s
         return backend
 
     def run_fused():
-        stages["fused"] = FusedFastStage(cfg, depth_backend(), loader, source, save_dir, split)
+        stages["fused"] = FusedFastStage(cfg, depth_backend(), loader, source, save_dir, split,
+                                         instance_provider=instance_provider)
         return stages["fused"].run(start_index, end_index)
 
     def run_depth():
@@ -119,7 +133,7 @@ def run_stages(stage: str, cfg: PipelineConfig, loader, source, save_dir: str, s
     def run_crops():
         # At CropStage's 512 px, as in the JAX package; the matcher resizes
         # reference crops to its views' size.
-        return CropStage(cfg, loader, source, save_dir, split,
+        return CropStage(cfg, loader, source, save_dir, split, instance_provider=instance_provider,
                          device=device).run(start_index, end_index)
 
     def run_completion():
@@ -155,7 +169,8 @@ def run_stages(stage: str, cfg: PipelineConfig, loader, source, save_dir: str, s
         return stages["layout"].run(start_index, end_index)
 
     def run_boxes():
-        stages["boxes"] = BoxStage(cfg, loader, save_dir, split, device=device)
+        stages["boxes"] = BoxStage(cfg, loader, save_dir, split,
+                                   instance_provider=instance_provider, device=device)
         return stages["boxes"].run(start_index, end_index)
 
     def run_export():
@@ -185,8 +200,27 @@ def main(argv=None, device=None) -> int:
     args, extras = build_parser().parse_known_args(argv)
     cfg_node = load_config(args.config, extras)
     cfg = PipelineConfig.from_node(cfg_node)
-    images_root, annotations_dir = get_dataset_paths(args.split, args.dataset_root)
-    loader = CoconutLoader(split=args.split, annotations_dir=annotations_dir)
+    device = device or args.device
+    provider = None
+    if args.wild:
+        from labelany3d_tpu_torch.data.sources import DirectoryLoader, WildInstanceProvider
+        from labelany3d_tpu_torch.data.wild import make_wild_source
+
+        images_root = args.dataset_root
+        loader = DirectoryLoader(images_root)
+        provider = WildInstanceProvider(make_wild_source(
+            foreground=str(cfg_node.run.wild_foreground),
+            tagger=str(cfg_node.run.wild_tagger),
+            segmentation=str(cfg_node.run.wild_segmentation),
+            clipseg_path=cfg_node.models.clipseg_path,
+            clip_path=cfg_node.models.clip_path,
+            sam_path=cfg_node.models.sam_path,
+            segformer_path=cfg_node.models.segformer_path,
+            device=device,
+        ))
+    else:
+        images_root, annotations_dir = get_dataset_paths(args.split, args.dataset_root)
+        loader = CoconutLoader(split=args.split, annotations_dir=annotations_dir)
     end = min(args.end_index, len(loader))
     start = min(args.start_index, end)
     tiny = bool(cfg_node.models.tiny)
@@ -194,7 +228,7 @@ def main(argv=None, device=None) -> int:
     timer = StageTimer()
     run_stages(args.stage, cfg, loader, FileImageSource(images_root), args.save_dir,
                args.split, start, end, run_options=cfg_node.run, preset=preset, tiny=tiny,
-               device=device or args.device, timer=timer)
+               device=device, timer=timer, instance_provider=provider)
     print(timer.report())
     return 0
 
