@@ -66,7 +66,15 @@ weights from a seed:
     SegFormer filter, the constant tagger), whose depth pass runs K1; the
     `--wild` CLI over 4 PNGs at the shipping thresholds; and SAM (depth 2),
     SegFormer-B0 and the fit on the card against the CPU, with a fault
-    planted on the card.
+    planted on the card;
+  * the released-weight workflow: TRELLIS's six components at full width
+    (1.71 G parameters) written as the release's float16 safetensors,
+    converted by `python -m labelany3d_tpu_torch.models.convert_cli` into
+    the store and read back bit for bit; the `all` route with
+    `obj_rec=trellis` reading the store through `ckpt_dir` over 1 image with
+    2 objects (K1, K2, K3 and K4 launches, the runner freeing what it built
+    between stages); `compare_coco3d` on the card over a seeded COCO3D pair
+    of 5,000 images x 8 boxes, the first pairs against the CPU.
 
 Each phase prints one line; any failure exits non-zero. Without CUDA, or
 without the rest of the repository beside it, it exits non-zero and prints
@@ -86,6 +94,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -574,6 +583,56 @@ class SyntheticState(dict):
                 self.rand(b + "ls1.gamma", c)
                 self.rand(b + "ls2.gamma", c)
         self.norm(pre + final_norm, c)
+
+
+def peak_timer():
+    """A `StageTimer` that also records each stage's peak device memory in
+    GB (`peaks_gb`): the peak statistics are reset as a stage starts and read
+    as it ends, so a route's peak is the largest of them."""
+    import contextlib
+
+    import torch
+
+    from labelany3d_tpu_torch.utils.profiling import StageTimer
+
+    class PeakTimer(StageTimer):
+        def __init__(self):
+            super().__init__()
+            self.peaks_gb = {}
+
+        @contextlib.contextmanager
+        def measure(self, stage: str, items: int = 0):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with StageTimer.measure(self, stage, items):
+                yield
+            torch.cuda.synchronize()
+            self.peaks_gb[stage] = torch.cuda.max_memory_allocated() / 1e9
+
+    return PeakTimer()
+
+
+class StageKeep(dict):
+    """A `stages` dict for `run_stages` that keeps, of each finished stage,
+    what `keep(name, stage)` returns instead of the stage object. A stage
+    holds its backend, so a dict of stage objects would keep every model the
+    runner built (and frees between stages) to the end of the route. A stage
+    has finished when the runner inserts the next one; `close()` takes the
+    last."""
+
+    def __init__(self, keep):
+        super().__init__()
+        self._keep, self._open = keep, None
+
+    def __setitem__(self, name, stage):
+        self.close()
+        super().__setitem__(name, stage)
+        self._open = name
+
+    def close(self) -> None:
+        if self._open is not None:
+            name, self._open = self._open, None
+            super().__setitem__(name, self._keep(name, self[name]))
 
 
 def released_moge_state(cfg, seed: int = 0, std: float = 0.02, device: str | None = None) -> dict:
@@ -1504,18 +1563,23 @@ def released_trellis_states(cfg, seed: int = 40, std: float = 0.02, device: str 
     yield "mesh", st
 
 
-def trellis_weights(cfg, seed: int = 40) -> tuple[dict, int]:
-    """Flax-layout trees of the six components from released-layout state
-    dicts (`released_trellis_states`) through `models/convert_trellis.py`,
-    and the parameter count."""
+def trellis_converters(cfg) -> dict:
+    """`models/convert_trellis.py`'s converter of each component at `cfg`."""
     from labelany3d_tpu_torch.models import convert_trellis as ct
 
-    conv = {"cond": lambda s: ct.convert_trellis_cond(s, cfg.cond_backbone),
+    return {"cond": lambda s: ct.convert_trellis_cond(s, cfg.cond_backbone),
             "ss": lambda s: ct.convert_trellis_ss_flow(s, cfg.structure),
             "ss_dec": lambda s: ct.convert_trellis_ss_decoder(s, cfg.ss_dec),
             "slat": lambda s: ct.convert_trellis_slat_flow(s, cfg.slat),
             "gs": lambda s: ct.convert_trellis_slat_gs(s, cfg.dec_gs),
             "mesh": lambda s: ct.convert_trellis_slat_mesh(s, cfg.dec_mesh)}
+
+
+def trellis_weights(cfg, seed: int = 40) -> tuple[dict, int]:
+    """Flax-layout trees of the six components from released-layout state
+    dicts (`released_trellis_states`) through `models/convert_trellis.py`,
+    and the parameter count."""
+    conv = trellis_converters(cfg)
     params, n = {}, 0
     for name, state in released_trellis_states(cfg, seed, device="cuda"):
         n += sum(v.size for v in state.values())
@@ -2015,6 +2079,9 @@ SD_MAX_SATURATED = 0.25
 SD_IMAGES = 2              # phase 12(c): 2 images x 2 objects
 SD_INSTANCES = 2
 SD_CROP = 512              # the crops the route's stage 3 writes
+# 12(c)'s peak when the runner kept every stage's models (NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md section 5), printed beside the peak with unloading.
+SD_ROUTE_PEAK_KEPT_GB = 15.2
 
 
 def sd_weights(seed: int = 60) -> tuple[dict, int]:
@@ -2238,7 +2305,6 @@ def run_reference_route(tmp: str) -> dict:
     from labelany3d_tpu_torch.pipeline.runner import run_stages
     from labelany3d_tpu_torch.pipeline.scene import SceneDir, scene_dir_name
     from labelany3d_tpu_torch.pipeline.stages.common import ArrayImageSource
-    from labelany3d_tpu_torch.utils.profiling import StageTimer
 
     cfg = PipelineConfig(bbox_method="minarea_pallas")
     loader = SyntheticLoader(SD_IMAGES, IMAGE_HW, seed=11, min_inst=SD_INSTANCES,
@@ -2253,7 +2319,17 @@ def run_reference_route(tmp: str) -> dict:
         k.reset()
     rnn.LAUNCHES_BY_SHAPE.clear()
     torch.cuda.reset_peak_memory_stats()
-    out_dir, stages, timer = os.path.join(tmp, "reference_all"), {}, StageTimer()
+    def keep(name, stage):
+        """What the phase reads of a finished stage; the rest (and the models
+        the runner built) is freed between stages."""
+        if name == "elevation":
+            m = stage.backend.pair_matcher.matcher
+            return SimpleNamespace(forwards=m.forwards, matcher_cfg=m.cfg)
+        if name == "reconstruction":
+            return SimpleNamespace(cfg=stage.backend.cfg)
+        return stage if name == "layout" else None
+
+    out_dir, stages, timer = os.path.join(tmp, "reference_all"), StageKeep(keep), peak_timer()
     t0 = time.perf_counter()
     run_stages("all", cfg, loader, ArrayImageSource(loader.pixels), out_dir, "val", 0,
                SD_IMAGES, backend=backend, matcher=matcher,
@@ -2261,15 +2337,17 @@ def run_reference_route(tmp: str) -> dict:
                             "elevation": "zero123", "obj_rec": "trellis"},
                device="cuda", timer=timer, stages=stages)
     torch.cuda.synchronize()
-    est = stages["elevation"].backend
+    stages.close()
+    est = stages["elevation"]
     res = {"s": time.perf_counter() - t0,
            "stage_s": {k: timer.stats[k].total_seconds for k in ALL_STAGES},
            "launches": {k: v.count for k, v in counters.items()},
            "plain_calls": {k: v.count for k, v in plains.items()},
            "failures": list(stages["layout"].failures), "forwards": matcher.forwards,
-           "elevation_forwards": est.pair_matcher.matcher.forwards,
+           "elevation_forwards": est.forwards,
            "k3_by_shape": dict(rnn.LAUNCHES_BY_SHAPE),
-           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "max_memory_gb": max(timer.peaks_gb.values()), "stage_peak_gb": timer.peaks_gb,
+           "allocated_after_gb": torch.cuda.memory_allocated() / 1e9}
     glbs, with_boxes, depths = [], set(), 0
     for info in loader.images:
         name = scene_dir_name(info["file_name"])
@@ -2285,9 +2363,9 @@ def run_reference_route(tmp: str) -> dict:
                   for im in json.load(f)["images"]}
     res["scenes_with_boxes"], res["coco3d_images"] = sorted(with_boxes), sorted(listed)
     res["stages_2_to_5"] = check_sd_route_outputs(out_dir, loader)
-    k1, k2 = trellis_launches(stages["reconstruction"].backend.cfg)
+    k1, k2 = trellis_launches(stages["reconstruction"].cfg)
     n = res["glbs"]
-    elev = matcher_launches(est.pair_matcher.matcher.cfg, res["elevation_forwards"])
+    elev = matcher_launches(est.matcher_cfg, res["elevation_forwards"])
     layout = matcher_launches(matcher.cfg, res["forwards"])
     depth_k1 = (-(-SD_IMAGES // cfg.batch_size)
                 * (backend.moge_cfg.backbone.depth + backend.dp_cfg.backbone.depth))
@@ -2438,7 +2516,10 @@ def run_sd(tmp: str) -> dict:
          k3_launches_by_shape=k3_shapes_json(route["k3_by_shape"]),
          stages_2_to_5=json.dumps(route["stages_2_to_5"]),
          scenes_with_boxes=json.dumps(route["scenes_with_boxes"]),
-         coco3d_images=json.dumps(route["coco3d_images"]), max_memory_gb=route["max_memory_gb"])
+         coco3d_images=json.dumps(route["coco3d_images"]), max_memory_gb=route["max_memory_gb"],
+         max_memory_gb_before_unloading=SD_ROUTE_PEAK_KEPT_GB,
+         stage_peak_gb=json.dumps(route["stage_peak_gb"]),
+         allocated_after_gb=route["allocated_after_gb"])
     if not route["ok"]:
         raise SystemExit("reference route: launches, plain calls, failures, stage 2-5 "
                          "artifacts, GLBs or COCO3D are not as required (see sd:route)")
@@ -2475,6 +2556,7 @@ HY_MVD_REL_TOL = 1e-3
 HY_IMAGES = 1              # phase 13(c): 1 image x 2 objects
 HY_INSTANCES = 2
 HY_VIEW = 512              # a grid tile and a crop
+HY_ROUTE_PEAK_KEPT_GB = 35.25  # 13(c)'s peak without unloading (as SD_ROUTE_PEAK_KEPT_GB)
 
 
 def released_svrm_state(cfg, seed: int = 80, std: float = 0.02,
@@ -2785,7 +2867,6 @@ def run_hunyuan_route(tmp: str) -> dict:
     from labelany3d_tpu_torch.pipeline.runner import run_stages
     from labelany3d_tpu_torch.pipeline.scene import SceneDir, scene_dir_name
     from labelany3d_tpu_torch.pipeline.stages.common import ArrayImageSource
-    from labelany3d_tpu_torch.utils.profiling import StageTimer
 
     cfg = PipelineConfig(bbox_method="minarea_pallas")
     loader = SyntheticLoader(HY_IMAGES, IMAGE_HW, seed=13, min_inst=HY_INSTANCES,
@@ -2797,21 +2878,30 @@ def run_hunyuan_route(tmp: str) -> dict:
     for k in (*counters.values(), *plains.values()):
         k.reset()
     torch.cuda.reset_peak_memory_stats()
-    out_dir, stages, timer = os.path.join(tmp, "hunyuan_all"), {}, StageTimer()
+    def keep(name, stage):
+        """What the phase reads of a finished stage (see StageKeep)."""
+        if name == "reconstruction":
+            return SimpleNamespace(cfg=stage.backend.cfg,
+                                   view_source=type(stage.backend.novel_views).__name__)
+        return stage if name == "layout" else None
+
+    out_dir, stages, timer = os.path.join(tmp, "hunyuan_all"), StageKeep(keep), peak_timer()
     t0 = time.perf_counter()
     run_stages("all", cfg, loader, ArrayImageSource(loader.pixels), out_dir, "val", 0,
                HY_IMAGES, backend=backend, matcher=matcher,
                run_options={"obj_rec": "hunyuan3d"}, device="cuda", timer=timer,
                stages=stages)
     torch.cuda.synchronize()
-    recon = stages["reconstruction"].backend
+    stages.close()
+    recon = stages["reconstruction"]
     res = {"s": time.perf_counter() - t0,
            "stage_s": {k: timer.stats[k].total_seconds for k in ALL_STAGES},
            "launches": {k: v.count for k, v in counters.items()},
            "plain_calls": {k: v.count for k, v in plains.items()},
            "failures": list(stages["layout"].failures), "forwards": matcher.forwards,
-           "view_source": type(recon.novel_views).__name__,
-           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "view_source": recon.view_source,
+           "max_memory_gb": max(timer.peaks_gb.values()), "stage_peak_gb": timer.peaks_gb,
+           "allocated_after_gb": torch.cuda.memory_allocated() / 1e9}
     meshes, placed, with_boxes, bad = [], 0, set(), []
     for info in loader.images:
         name = scene_dir_name(info["file_name"])
@@ -2995,7 +3085,10 @@ def run_hunyuan(tmp: str) -> dict:
          forwards=route["forwards"], view_source=route["view_source"],
          meshes=json.dumps(route["meshes"]), bad_glbs=json.dumps(route["bad_glbs"]),
          scenes_with_boxes=json.dumps(route["scenes_with_boxes"]),
-         coco3d_images=json.dumps(route["coco3d_images"]), max_memory_gb=route["max_memory_gb"])
+         coco3d_images=json.dumps(route["coco3d_images"]), max_memory_gb=route["max_memory_gb"],
+         max_memory_gb_before_unloading=HY_ROUTE_PEAK_KEPT_GB,
+         stage_peak_gb=json.dumps(route["stage_peak_gb"]),
+         allocated_after_gb=route["allocated_after_gb"])
     if not route["ok"]:
         raise SystemExit("hunyuan route: launches, plain calls, GLBs or COCO3D are not as "
                          "required (see hunyuan:route)")
@@ -3567,6 +3660,326 @@ def run_wild(tmp: str) -> dict:
     return {"components": comp, "route": route, "cli": cli, "card_vs_cpu": check}
 
 
+# Phase 15, the released-weight workflow: TRELLIS's six components written as
+# the release's float16 safetensors and converted by the convert CLI into the
+# store (`models/checkpoints.py`), read back bit for bit; the `all` route with
+# obj_rec=trellis reading the store through `ckpt_dir`, the runner freeing
+# the models it built between stages; COCO3D scoring on the card.
+
+# The source files (1.71 G parameters in float16, 3.42 GB) and the store
+# (the converters keep the source's dtype: 3.42 GB), with room to spare; each
+# source file is deleted once converted, so the peak is lower.
+CKPT_DISK_GB = 8.0
+CKPT_IMAGES = 1            # phase 15(b): 1 image x 2 objects
+CKPT_INSTANCES = 2
+SCORE_IMAGES = 5000        # phase 15(c): a COCO val split's scale
+SCORE_BOXES = 8
+SCORE_CHECK_PAIRS = 256
+# 15(c)'s per-pair IoUs on the card against the CPU. Both compute each grid
+# point's box test in float32 (TF32 off), but the card's einsum may round
+# another way, so a point within rounding of a box face can flip: one flip
+# moves an IoU by 1/union, 3e-5 at a third of the 32^3 grid. The limit
+# allows a few flips; a wrong axis or a lost grid row moves IoUs by 1e-2.
+# The first card run (NVIDIA H100 80GB HBM3, 700.00 W) read 0.0 on the 256
+# pairs: no point flipped.
+SCORE_CARD_TOL = 1e-3
+
+
+def synthetic_coco3d_pair(n_images: int, per_image: int, seed: int = 120):
+    """Two COCO3D dicts. The first: `n_images` images of `per_image` boxes,
+    seeded centres 4 to 12 m ahead, sizes 0.3 to 2 m, yaws in [-pi, pi),
+    2D boxes on a 100-px grid (one object a cell). The second: every box
+    moved by N(0, 0.15 m) and rotated by N(0, 0.2 rad), its 2D box shifted
+    by up to 8 px, a tenth of the annotations dropped and one image in 20
+    missing."""
+    import numpy as np
+    import torch
+
+    from labelany3d_tpu_torch.geometry.boxfit import convert_box_vertices
+
+    rng = np.random.default_rng(seed)
+    n = n_images * per_image
+    center = rng.uniform([-3.0, -1.0, 4.0], [3.0, 1.0, 12.0], (n, 3)).astype(np.float32)
+    dims = rng.uniform(0.3, 2.0, (n, 3)).astype(np.float32)
+    yaw = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
+    moved = center + rng.normal(0.0, 0.15, (n, 3)).astype(np.float32)
+    turned = yaw + rng.normal(0.0, 0.2, n).astype(np.float32)
+    shift = rng.uniform(-8.0, 8.0, (n, 2))
+    keep_anno = rng.uniform(size=n) >= 0.1
+    keep_image = rng.uniform(size=n_images) >= 0.05
+
+    def corners(c, y):
+        return convert_box_vertices(torch.from_numpy(c), torch.from_numpy(dims),
+                                    torch.from_numpy(y)).numpy().tolist()
+
+    files = ({"images": [], "annotations": []}, {"images": [], "annotations": []})
+    for which, (cs, keep) in enumerate(((corners(center, yaw), None),
+                                        (corners(moved, turned), keep_anno))):
+        out = files[which]
+        for i in range(n_images):
+            if which and not keep_image[i]:
+                continue
+            iid = 1000000 + i
+            out["images"].append({"id": iid, "file_path": f"images/val2017/{i + 1:012d}.jpg",
+                                  "width": 640, "height": 480})
+            for k in range(per_image):
+                j = i * per_image + k
+                if keep is not None and not keep[j]:
+                    continue
+                x0, y0 = 10.0 + 150.0 * (k % 4), 10.0 + 150.0 * (k // 4)
+                if which:
+                    x0, y0 = x0 + shift[j, 0], y0 + shift[j, 1]
+                box = [x0, y0, x0 + 100.0, y0 + 100.0]
+                out["annotations"].append({"id": 100000000 + j, "image_id": iid,
+                                           "category_id": 1, "bbox3D_cam": cs[j],
+                                           "bbox2D_tight": box, "bbox2D_trunc": box})
+    return files
+
+
+def run_ckpt_convert(tmp: str) -> dict:
+    """Phase 15(a): each TRELLIS component at `TrellisPipelineConfig()`,
+    drawn in the release's layout (`released_trellis_states`, seed 40),
+    written as a float16 `.safetensors` (the release's `_fp16` files) with
+    the port's codec, converted by the CLI's `trellis_*` entry into the store
+    (the conditioner through `python -m` in a subprocess, the others in this
+    process), then read back and held, bit for bit, to the in-memory
+    conversion of the same float16 state; the source file is deleted."""
+    import shutil
+
+    import numpy as np
+
+    from labelany3d_tpu_torch.models import convert_cli
+    from labelany3d_tpu_torch.models.checkpoints import PARAMS_FILE, flatten_tree, load_params
+    from labelany3d_tpu_torch.models.trellis import TrellisPipeline, TrellisPipelineConfig
+    from labelany3d_tpu_torch.utils.safetensors_io import save_file
+
+    cfg = TrellisPipelineConfig()
+    free = shutil.disk_usage(tmp).free
+    _say("ckpt:disk", free_gb=free / 1e9, need_gb=CKPT_DISK_GB)
+    if free < CKPT_DISK_GB * 1e9:
+        raise SystemExit(f"ckpt: {free / 1e9:.2f} GB free under {tmp}, the phase needs "
+                         f"{CKPT_DISK_GB} GB")
+    store, src = os.path.join(tmp, "ckpt_store"), os.path.join(tmp, "ckpt_src")
+    os.makedirs(src, exist_ok=True)
+    conv = trellis_converters(cfg)
+    res = {"store": store, "entries": {}, "parameters": 0, "ok": True}
+    for comp, state in released_trellis_states(cfg, 40, device="cuda"):
+        name = TrellisPipeline.CKPT_NAMES[comp]
+        entry = {"parameters": int(sum(v.size for v in state.values()))}
+        path = os.path.join(src, f"{name}_fp16.safetensors")
+        state = {k: v.astype(np.float16) for k, v in state.items()}
+        t0 = time.perf_counter()
+        save_file(state, path)
+        entry["write_s"] = time.perf_counter() - t0
+        entry["source_bytes"] = os.path.getsize(path)
+        t0 = time.perf_counter()
+        if comp == "cond":
+            proc = subprocess.run(
+                [sys.executable, "-m", "labelany3d_tpu_torch.models.convert_cli", name, path,
+                 "--out", store], capture_output=True, text=True, timeout=600,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+            if proc.returncode:
+                raise SystemExit(f"ckpt: convert_cli {name} exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+            entry["cli"] = proc.stdout.strip()
+        else:
+            convert_cli.main([name, path, "--out", store])
+        entry["convert_s"] = time.perf_counter() - t0
+        os.remove(path)
+        entry["store_bytes"] = os.path.getsize(os.path.join(store, name, PARAMS_FILE))
+        t0 = time.perf_counter()
+        got = flatten_tree(load_params(store, name))
+        want = flatten_tree(conv[comp](state))
+        entry["load_s"] = time.perf_counter() - t0
+        entry["arrays"] = len(want)
+        entry["dtypes"] = sorted({str(np.asarray(v).dtype) for v in want.values()})
+        entry["equal"] = (set(got) == set(want) and all(
+            got[k].dtype == np.asarray(v).dtype and np.array_equal(got[k], v)
+            for k, v in want.items()))
+        res["ok"] &= entry["equal"]
+        res["parameters"] += entry["parameters"]
+        res["entries"][name] = entry
+        del state, got, want
+    shutil.rmtree(src)
+    res["ok"] &= res["parameters"] == 1710314710
+    return res
+
+
+def run_ckpt_route(tmp: str, store: str) -> dict:
+    """Phase 15(b): `run_stages("all", ...)` with run.obj_rec=trellis and
+    `ckpt_dir=store` over 1 synthetic image with 2 objects, stages 2, 4 and 5
+    at their shipping defaults, the depth backend at the `large` preset and
+    the layout's `MatcherConfig()` passed in (as in 12(c)),
+    `bbox_method=minarea_pallas`. TRELLIS reads the stored (non-zero)
+    weights, so its meshes have faces and the layout stage registers them.
+    The runner frees what it built between stages; the phase keeps only the
+    layout stage (see StageKeep)."""
+    import numpy as np
+    import torch
+
+    from labelany3d_tpu_torch.data.meshio import load_glb
+    from labelany3d_tpu_torch.models.trellis import TrellisPipelineConfig
+    from labelany3d_tpu_torch.ops import reciprocal_nn as rnn
+    from labelany3d_tpu_torch.pipeline.backends import TorchMatcherBackend, default_registry
+    from labelany3d_tpu_torch.pipeline.config import PipelineConfig
+    from labelany3d_tpu_torch.pipeline.runner import run_stages
+    from labelany3d_tpu_torch.pipeline.scene import SceneDir, scene_dir_name
+    from labelany3d_tpu_torch.pipeline.stages.common import ArrayImageSource
+    from labelany3d_tpu_torch.utils import logging as plog
+
+    cfg = PipelineConfig(bbox_method="minarea_pallas")
+    loader = SyntheticLoader(CKPT_IMAGES, IMAGE_HW, seed=15, min_inst=CKPT_INSTANCES,
+                             max_inst=CKPT_INSTANCES)
+    backend = default_registry().get("depth", preset="large", pin_hw=cfg.bucket_sizes()[0],
+                                     device="cuda", seed=cfg.seed)
+    matcher = TorchMatcherBackend(tiny=False, seed=cfg.seed, device="cuda")
+    counters, plains = kernel_counters()
+    for k in (*counters.values(), *plains.values()):
+        k.reset()
+    rnn.LAUNCHES_BY_SHAPE.clear()
+    random_keys = ("trellis_random", "trellis_partial_ckpt")
+    for key in random_keys:  # earlier phases ran TRELLIS with random weights
+        plog._seen.discard(key)
+    torch.cuda.reset_peak_memory_stats()
+    out_dir, timer = os.path.join(tmp, "ckpt_all"), peak_timer()
+    stages = StageKeep(lambda name, stage: stage if name == "layout" else None)
+    t0 = time.perf_counter()
+    run_stages("all", cfg, loader, ArrayImageSource(loader.pixels), out_dir, "val", 0,
+               CKPT_IMAGES, backend=backend, matcher=matcher,
+               run_options={"obj_rec": "trellis"}, ckpt_dir=store, device="cuda",
+               timer=timer, stages=stages)
+    torch.cuda.synchronize()
+    stages.close()
+    caller_bytes = sum(p.numel() * p.element_size()
+                       for m in (backend.moge, backend.depth_pro, matcher.model)
+                       if m is not None for p in m.parameters())
+    res = {"s": time.perf_counter() - t0,
+           "stage_s": {k: timer.stats[k].total_seconds for k in ALL_STAGES},
+           "launches": {k: v.count for k, v in counters.items()},
+           "plain_calls": {k: v.count for k, v in plains.items()},
+           "failures": list(stages["layout"].failures), "forwards": matcher.forwards,
+           "k3_by_shape": dict(rnn.LAUNCHES_BY_SHAPE),
+           "random_weight_warnings": [k for k in random_keys if k in plog._seen],
+           "max_memory_gb": max(timer.peaks_gb.values()), "stage_peak_gb": timer.peaks_gb,
+           "allocated_after_gb": torch.cuda.memory_allocated() / 1e9,
+           "caller_models_gb": caller_bytes / 1e9}
+    meshes, placed, with_boxes = [], 0, set()
+    for info in loader.images:
+        name = scene_dir_name(info["file_name"])
+        sd = SceneDir(os.path.join(out_dir, "val", name))
+        for i in sd.list_crop_ids():
+            if sd.object_mesh(i).exists():
+                m = load_glb(sd.object_mesh(i))
+                meshes.append((len(m.vertices), len(m.faces),
+                               bool(np.isfinite(m.vertices).all())))
+        placed += (sd.root / "reconstruction" / "full_scene.glb").exists()
+        if sd.bbox3d.exists() and sd.read_bbox3d():
+            with_boxes.add(name)
+    with open(os.path.join(out_dir, "COCO3D_val.json")) as f:
+        listed = {os.path.basename(im["file_path"]).rsplit(".", 1)[0]
+                  for im in json.load(f)["images"]}
+    res["meshes"] = meshes
+    res["scenes_with_boxes"], res["coco3d_images"] = sorted(with_boxes), sorted(listed)
+    layout = matcher_launches(matcher.cfg, res["forwards"])
+    depth_k1 = (-(-CKPT_IMAGES // cfg.batch_size)
+                * (backend.moge_cfg.backbone.depth + backend.dp_cfg.backbone.depth))
+    k1, k2 = trellis_launches(TrellisPipelineConfig())
+    n = len(meshes)
+    res["want"] = {"k1": depth_k1 + k1 * n + layout["k1"], "k2": k2 * n + layout["k2"],
+                   "k3": layout["k3"], "k4": placed}
+    res["ok"] = (res["launches"] == res["want"] and not any(res["plain_calls"].values())
+                 and n == CKPT_IMAGES * CKPT_INSTANCES
+                 and all(f > 0 and fin for _, f, fin in meshes)
+                 and not res["random_weight_warnings"] and with_boxes == listed)
+    del stages, backend, matcher
+    torch.cuda.empty_cache()
+    return res
+
+
+def score_card_vs_cpu(ca, cb, n: int = SCORE_CHECK_PAIRS) -> float:
+    """The largest difference of the first `n` matched pairs' IoUs, card
+    against CPU."""
+    from labelany3d_tpu_torch.export.evaluate import pair_ious
+
+    card = pair_ious(ca[:n], cb[:n], device="cuda").cpu()
+    cpu = pair_ious(ca[:n], cb[:n], device="cpu")
+    return float((card - cpu).abs().max())
+
+
+def run_scoring() -> dict:
+    """Phase 15(c): `compare_coco3d` on the card over a seeded COCO3D pair of
+    SCORE_IMAGES x SCORE_BOXES boxes (`synthetic_coco3d_pair`): the whole
+    call timed (host clock), its host matching and its card IoUs apart (the
+    IoUs with CUDA events), the first pairs against the CPU, and the file
+    scored against itself (mean IoU 1.0, every annotation matched)."""
+    import torch
+
+    from labelany3d_tpu_torch.export import evaluate as ev
+
+    t0 = time.perf_counter()
+    ours, theirs = synthetic_coco3d_pair(SCORE_IMAGES, SCORE_BOXES)
+    res = {"make_s": time.perf_counter() - t0,
+           "annotations": [len(ours["annotations"]), len(theirs["annotations"])]}
+    ev.compare_coco3d(ours, theirs, device="cuda")  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res["summary"] = ev.compare_coco3d(ours, theirs, device="cuda")
+    res["compare_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ca, cb, _ = ev.matched_corners(ours, theirs)
+    res["match_host_s"] = time.perf_counter() - t0
+    res["pairs"] = len(ca)
+    res["iou_device_ms"] = time_cuda(lambda: ev.pair_ious(ca, cb, device="cuda"), iters=3,
+                                     warmup=1)
+    res["pairs_per_s"] = res["pairs"] / res["compare_s"]
+    res["card_vs_cpu"] = score_card_vs_cpu(ca, cb)
+    res["self"] = ev.compare_coco3d(theirs, theirs, device="cuda")
+    s = res["summary"]
+    res["ok"] = (res["card_vs_cpu"] <= SCORE_CARD_TOL and s["matched_pairs"] == res["pairs"] > 0
+                 and 0.0 < s["mean_iou3d"] < 1.0
+                 and res["self"]["mean_iou3d"] == 1.0
+                 and res["self"]["matched_pairs"] == res["self"]["annotations_theirs"])
+    return res
+
+
+def run_ckpt(tmp: str) -> dict:
+    """Phase 15: (a) the conversion into the store, (b) the route from it,
+    (c) scoring; prints each part's line."""
+    conv = run_ckpt_convert(tmp)
+    for name, e in conv["entries"].items():
+        _say(f"ckpt:convert:{name}", **{k: json.dumps(v) if isinstance(v, list) else v
+                                        for k, v in e.items()})
+    _say("ckpt:convert", parameters=conv["parameters"],
+         store_bytes=sum(e["store_bytes"] for e in conv["entries"].values()),
+         source_bytes=sum(e["source_bytes"] for e in conv["entries"].values()),
+         convert_s=sum(e["convert_s"] for e in conv["entries"].values()), ok=conv["ok"])
+    if not conv["ok"]:
+        raise SystemExit("ckpt: the store does not hold the in-memory conversion bit for bit, "
+                         "or the parameter count is wrong (see ckpt:convert:*)")
+    route = run_ckpt_route(tmp, conv["store"])
+    _say("ckpt:route", s=route["s"], stage_s=json.dumps(route["stage_s"]),
+         launches=json.dumps(route["launches"]), want=json.dumps(route["want"]),
+         plain_calls=json.dumps(route["plain_calls"]), failures=json.dumps(route["failures"]),
+         forwards=route["forwards"], meshes=json.dumps(route["meshes"]),
+         k3_launches_by_shape=k3_shapes_json(route["k3_by_shape"]),
+         random_weight_warnings=json.dumps(route["random_weight_warnings"]),
+         scenes_with_boxes=json.dumps(route["scenes_with_boxes"]),
+         coco3d_images=json.dumps(route["coco3d_images"]), max_memory_gb=route["max_memory_gb"],
+         stage_peak_gb=json.dumps(route["stage_peak_gb"]),
+         allocated_after_gb=route["allocated_after_gb"],
+         caller_models_gb=route["caller_models_gb"])
+    if not route["ok"]:
+        raise SystemExit("ckpt route: launches, plain calls, meshes, warnings or COCO3D are "
+                         "not as required (see ckpt:route)")
+    score = run_scoring()
+    _say("ckpt:score", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                          for k, v in score.items()}, card_tol=SCORE_CARD_TOL)
+    if not score["ok"]:
+        raise SystemExit("ckpt scoring: the card disagrees with the CPU, or the summary or the "
+                         "self-score is not as required (see ckpt:score)")
+    return {"convert": conv, "route": route, "score": score}
+
+
 def module_version(name: str) -> str:
     """An optional module's version, or "missing" (the overlay needs OpenCV)."""
     try:
@@ -3841,6 +4254,12 @@ def main() -> int:
         # route with the wild provider, the --wild CLI, the card against
         # the CPU.
         wild = run_wild(tmp)
+        torch.cuda.empty_cache()
+
+        # 15. The released-weight workflow: TRELLIS converted into the store
+        # at full width, the all route reading it, scoring on the card.
+        ckpt = run_ckpt(tmp)
+        croute = ckpt["route"]
 
     def row(name, source, replaces, launches, r, max_abs_err, **extra):
         return {"name": name, "route": "cuda", "source": f"labelany3d_tpu_torch/csrc/{source}",
@@ -3870,6 +4289,7 @@ def main() -> int:
             launches_elevation_estimates=scomp["launches"]["k1"],
             launches_wild_route=wild["route"]["launches"]["k1"],
             launches_wild_cli=wild["cli"]["k1_launches"],
+            launches_ckpt_route=croute["launches"]["k1"],
             shape="MoGe B=8 Npad=1408 n_real=1297 H=16 d=64", design=design,
             ratio_to_library=k1["moge"]["ratio_to_library"],
             share_of_bound=k1["moge"]["share_of_bound"], sass=sass["k1"],
@@ -3885,6 +4305,7 @@ def main() -> int:
             launches_elevation_estimates=scomp["launches"]["k2"],
             launches_svrm_reconstructs=hcomp["launches"]["k2"],
             launches_hunyuan_route=hroute["launches"]["k2"],
+            launches_ckpt_route=croute["launches"]["k2"],
             shape="q, k, v (32, 1296, 12, 64) bf16", design=design,
             ratio_to_library=k2["path"]["ratio_to_library"],
             share_of_bound=k2["path"]["share_of_bound"], sass=sass["k2"],
@@ -3900,6 +4321,7 @@ def main() -> int:
             launches_all_route=allr["launches"]["k3"],
             launches_reference_route=sroute["launches"]["k3"],
             launches_elevation_estimates=scomp["launches"]["k3"],
+            launches_ckpt_route=croute["launches"]["k3"],
             shape="query (32, 4096, 24) x bank (32, 262144, 24), bf16 operands",
             design=NN_DESIGN, sass=sass["k3"], share_of_bound=k3["path_bf16"]["share_of_bound"],
             library="none at 32 x 4096 (a 68 GB score matrix); see compact and one_pair",
@@ -3934,6 +4356,7 @@ def main() -> int:
             eager_ms=k4["layout"]["eager_ms"],
             launches_all_route=allr["launches"]["k4"],
             launches_boxes_route=box["launches"]["k4"],
+            launches_ckpt_route=croute["launches"]["k4"],
             fast={"launches_boxes_route": box["launches"]["k4"],
                   **{k: k4["fast"][k]
                      for k in ("ms", "plain_ms", "eager_ms", "bound_ms", "bound_by")}}),

@@ -4,6 +4,8 @@ Counterpart of `labelany3d_tpu/models/registry.py`: factories registered
 under string keys, built on first `get`, swappable in tests with
 `register(name, factory, override=True)`. The registry is an object the
 caller creates and passes; `pipeline/backends.py::default_registry` fills one.
+`unload` / `unload_all` drop built models, as the runner does between the
+stages of a multi-stage route.
 """
 
 from __future__ import annotations
@@ -37,3 +39,21 @@ class ModelRegistry:
         with self._lock:
             self._loaded[name] = model
         return model
+
+    def unload(self, name: str) -> bool:
+        """Drop a loaded model (its memory becomes collectable); True if one
+        was loaded."""
+        with self._lock:
+            return self._loaded.pop(name, None) is not None
+
+    def unload_all(self) -> None:
+        with self._lock:
+            self._loaded.clear()
+
+    def loaded(self) -> list[str]:
+        with self._lock:
+            return sorted(self._loaded)
+
+    def available(self) -> list[str]:
+        with self._lock:
+            return sorted(self._factories)

@@ -10,7 +10,8 @@ Counterpart of `labelany3d_tpu/models/trellis/pipeline.py`:
   (Gaussians + FlexiCubes features) -> surface and texture bake (GLB mesh).
 
 Weights: Flax-layout trees by component (`params={"cond": ..., "ss": ...}`,
-from `models/convert_trellis.py` for a release) through
+from `models/convert_trellis.py` for a release, or read from the store
+under `ckpt_dir` that the convert CLI's `trellis_*` entries write) through
 `flax_to_state_dict`, or random ones from a `torch.Generator` with Flax's
 initialisers, zero-initialised gates and output layers included (so the
 flows return their noise and the mesh decoder's field is flat, as in the
@@ -114,15 +115,22 @@ class TrellisPipeline:
     every floating parameter in bf16 (the full-width serving precision, as
     the JAX backend's); None keeps float32."""
 
+    # The store's names (`<ckpt_dir>/<name>/`), which the convert CLI's
+    # `trellis_*` entries write, by component.
+    CKPT_NAMES = {"cond": "trellis_cond", "ss": "trellis_ss_flow", "ss_dec": "trellis_ss_dec",
+                  "slat": "trellis_slat_flow", "gs": "trellis_slat_gs",
+                  "mesh": "trellis_slat_mesh"}
+
     def __init__(self, cfg: TrellisPipelineConfig | None = None, seed: int = 0,
                  params: dict | None = None, params_dtype: torch.dtype | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, ckpt_dir: str | None = None):
         self.device = resolve_device(device)
         self.cfg = cfg or TrellisPipelineConfig()
         self.models: dict | None = None  # built on first use
         self._params = dict(params or {})
         self._params_dtype = params_dtype
         self._seed = seed
+        self._ckpt_dir = ckpt_dir
 
     def _build(self) -> dict:
         c = self.cfg
@@ -144,26 +152,42 @@ class TrellisPipeline:
 
     def init_params(self) -> None:
         """Build the six components; load each one's Flax-layout tree when
-        given, else draw random weights (component i from a generator seeded
-        `seed + i`); then cast to the serving dtype and freeze."""
-        models = self._build()
-        missing = [k for k in COMPONENTS if k not in self._params]
-        if len(missing) == len(COMPONENTS):
-            from labelany3d_tpu_torch.utils.logging import warn_once
+        given in `params`, else from the store under `ckpt_dir` (its
+        `CKPT_NAMES` entry, one component in memory at a time), else draw
+        random weights (component i from a generator seeded `seed + i`);
+        then cast to the serving dtype and freeze. A store that lacks some
+        components warns with their names (`trellis_partial_ckpt`, as the
+        JAX package does); no converted weights at all warns
+        `trellis_random`."""
+        from labelany3d_tpu_torch.models.checkpoints import load_params
+        from labelany3d_tpu_torch.utils.logging import warn_once
 
-            warn_once("trellis_random", "TRELLIS runs with random-initialized weights (no "
-                      "converted checkpoint): generated meshes are not meaningful")
+        models = self._build()
+        missing = []
         for i, name in enumerate(COMPONENTS):
             model = models[name]
-            if name in self._params:
-                model.load_state_dict(flax_to_state_dict(self._params.pop(name), model))
+            tree = self._params.pop(name, None)
+            if tree is None and self._ckpt_dir:
+                tree = load_params(self._ckpt_dir, self.CKPT_NAMES[name])
+            if tree is not None:
+                model.load_state_dict(flax_to_state_dict(tree, model))
+                del tree
             else:
+                missing.append(name)
                 init_trellis_params_(model, torch.Generator(device=self.device).manual_seed(
                     self._seed + i))
             if self._params_dtype is not None:
                 for p in model.parameters():
                     p.data = p.data.to(self._params_dtype)
             model.eval().requires_grad_(False)
+        if len(missing) == len(COMPONENTS):
+            warn_once("trellis_random", "TRELLIS runs with random-initialized weights (no "
+                      "converted checkpoint): generated meshes are not meaningful")
+        elif missing and self._ckpt_dir:
+            warn_once("trellis_partial_ckpt",
+                      f"TRELLIS components {[self.CKPT_NAMES[k] for k in missing]} not found "
+                      f"under {self._ckpt_dir}: those run with random weights (convert them "
+                      "with `python -m labelany3d_tpu_torch.models.convert_cli trellis_*`)")
         self.models = models
 
     def _ensure(self) -> None:

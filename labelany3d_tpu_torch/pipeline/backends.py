@@ -383,24 +383,29 @@ def make_elevation(backend: str = "zero", tiny: bool = False, device=None, seed:
 
 
 def make_reconstruction(backend: str = "silhouette", tiny: bool = False, device=None,
-                        seed: int = 0, views: str = "mvd", **_kw):
-    """Stage 6's backends, their weights random from `seed`:
+                        seed: int = 0, views: str = "mvd", ckpt_dir: str | None = None, **_kw):
+    """Stage 6's backends, their weights read from the store under
+    `ckpt_dir` (`models/checkpoints.py`, written by the convert CLI) where
+    it holds them, else random from `seed`:
 
       * 'silhouette' (the shipping default);
       * 'trellis': a `TrellisPipeline` at `TrellisPipelineConfig()` with its
         weights held in bf16, or at `tiny_test()` in float32 with `tiny`;
+        the store's `trellis_*` components;
       * 'hunyuan3d': `SVRMReconstruction` at `SVRMConfig()` (`tiny_test()`
         with `tiny`) over the mvd_std grid diffusion's six views
         (`MVDStdViews`, the reference's view source), or with
         `views='zero123'` over `Zero123NovelView` views (256 px, 64 with
-        `tiny`);
+        `tiny`); the store's `svrm`, and `mvd` (or `zero123`) for the views;
       * 'hunyuan3d_carve': `SpaceCarveReconstruction` (visual hull) over
-        `Zero123NovelView` views."""
+        `Zero123NovelView` views, which reads no store (nor does
+        'silhouette'), as in the JAX package."""
     if backend == "trellis":
         from labelany3d_tpu_torch.models.trellis import TrellisPipeline, TrellisPipelineConfig
 
         return TrellisPipeline(TrellisPipelineConfig.tiny_test() if tiny else None, seed=seed,
-                               params_dtype=None if tiny else torch.bfloat16, device=device)
+                               params_dtype=None if tiny else torch.bfloat16, device=device,
+                               ckpt_dir=ckpt_dir)
     if backend in ("hunyuan3d", "hunyuan3d_carve"):
         from labelany3d_tpu_torch.models.diffusion import MVDStdViews, Zero123NovelView
 
@@ -417,8 +422,16 @@ def make_reconstruction(backend: str = "silhouette", tiny: bool = False, device=
             return SpaceCarveReconstruction(novel_views=nv, device=device)
         from labelany3d_tpu_torch.models.svrm import SVRMConfig, SVRMReconstruction
 
+        params = None
+        if ckpt_dir:
+            from labelany3d_tpu_torch.models.checkpoints import load_params
+
+            params = load_params(ckpt_dir, "svrm")
+            nv_params = load_params(ckpt_dir, "mvd" if views == "mvd" else "zero123")
+            if nv_params is not None:
+                nv.set_params(nv_params)
         return SVRMReconstruction(novel_views=nv, cfg=SVRMConfig.tiny_test() if tiny else None,
-                                  seed=seed, device=device)
+                                  params=params, seed=seed, device=device)
     from labelany3d_tpu_torch.pipeline.stages.generative import SilhouetteExtrude
 
     return _shipping_default("obj_rec", backend, "silhouette", SilhouetteExtrude)

@@ -111,7 +111,7 @@ DEFAULT_CONFIG: dict = {
         "clip_path": None,              # local CLIP snapshot (wild tagger)
         "sam_path": None,               # local SAM .pth (wild segmenter)
         "segformer_path": None,         # local ADE20K SegFormer .pth (filter)
-        "ckpt_dir": None,               # orbax store written by convert_cli
+        "ckpt_dir": None,               # store of models/convert_cli.py (params.safetensors)
     },
 }
 

@@ -20,9 +20,11 @@ The port has the shipping-default backend of each of stages 2, 4, 5 and 6,
 the SD-class backends of stages 2, 4 and 5 (`run.enhance=invsr`,
 `run.amodal_completion=our`, `run.elevation=zero123`), and TRELLIS and
 Hunyuan3D for stage 6 (`run.obj_rec=trellis`, `hunyuan3d`,
-`hunyuan3d_carve`). Unlike the JAX runner,
-`all` keeps every stage's models loaded. Runs on CUDA; `--device cpu` runs
-the plain PyTorch path on the CPU.
+`hunyuan3d_carve`), whose `trellis` and `hunyuan3d` backends read released
+weights from the store under `models.ckpt_dir` (written by
+`python -m labelany3d_tpu_torch.models.convert_cli`). As in the JAX runner,
+a multi-stage route (`fast`, `all`) frees the models it built after each
+stage. Runs on CUDA; `--device cpu` runs the plain PyTorch path on the CPU.
 
 `--wild` is the in-the-wild mode: `--dataset_root` is a plain image folder
 (`DirectoryLoader`), and the fused, crop and box stages take their
@@ -35,6 +37,9 @@ semantic | clipseg, `run.wild_tagger` constant | clip, weights from
 from __future__ import annotations
 
 import argparse
+import gc
+
+import torch
 
 from labelany3d_tpu_torch.pipeline.config import PipelineConfig, load_config
 from labelany3d_tpu_torch.utils.profiling import StageTimer
@@ -67,7 +72,7 @@ def run_stages(stage: str, cfg: PipelineConfig, loader, source, save_dir: str, s
                enhance=None, completion=None, elevation=None,
                run_options: dict | None = None, preset: str = "large", tiny: bool = False,
                device=None, timer: StageTimer | None = None, stages: dict | None = None,
-               instance_provider=None) -> dict:
+               instance_provider=None, ckpt_dir: str | None = None) -> dict:
     """Run one route over an index range; returns {stage: count}.
 
     `backend` defaults to `make_depth(preset)` pinned to the first bucket,
@@ -81,10 +86,21 @@ def run_stages(stage: str, cfg: PipelineConfig, loader, source, save_dir: str, s
     tiny test config with `tiny` (the CLI's `models.tiny`), its random
     weights seeded from `cfg.seed`, as the JAX runner's `_backend` passes
     `tiny` to every factory.
+    `ckpt_dir` (the CLI's `models.ckpt_dir`) goes to the reconstruction
+    factory only, as in the JAX runner: its `trellis` and `hunyuan3d`
+    backends read the store's converted weights.
     `stages`, when given, receives each stage object by name (a caller can
-    read `stages["layout"].failures`). `instance_provider` (wild mode's
+    read `stages["layout"].failures`); it is the caller's, so the models its
+    stages hold stay loaded. `instance_provider` (wild mode's
     `WildInstanceProvider`) goes to the fused, crop and box stages, as the
-    JAX runner passes it; by default they read COCONUT annotations."""
+    JAX runner passes it; by default they read COCONUT annotations.
+
+    A multi-stage route (`fast`, `all`) frees, after each stage that built
+    a model (the registry's, and the backends it chose), every model this
+    call built, then runs `gc.collect()` and `torch.cuda.empty_cache()`, as
+    the JAX runner unloads between stages. Backends the caller passed stay
+    the caller's, and a stage that built nothing leaves the allocator's
+    cache as it is."""
     from labelany3d_tpu_torch.pipeline.backends import default_registry
     from labelany3d_tpu_torch.pipeline.stages import (
         BoxStage,
@@ -101,7 +117,12 @@ def run_stages(stage: str, cfg: PipelineConfig, loader, source, save_dir: str, s
 
     timer = timer or StageTimer()
     counts = {}
+    own_stages = stages is None
     stages = {} if stages is None else stages
+    # The models this call builds (and may free): those the caller left None.
+    built = {name for name, v in (("backend", backend), ("matcher", matcher),
+                                  ("enhance", enhance), ("completion", completion),
+                                  ("elevation", elevation)) if v is None}
     run_options = run_options or {}
     registry = default_registry()
     gen_kw = {"tiny": tiny, "device": device, "seed": cfg.seed}
@@ -155,7 +176,8 @@ def run_stages(stage: str, cfg: PipelineConfig, loader, source, save_dir: str, s
 
     def run_reconstruction():
         backend_3d = registry.get("reconstruction",
-                                  backend=str(run_options.get("obj_rec", "silhouette")), **gen_kw)
+                                  backend=str(run_options.get("obj_rec", "silhouette")),
+                                  ckpt_dir=ckpt_dir, **gen_kw)
         stages["reconstruction"] = ReconstructionStage(cfg, loader, save_dir, split,
                                                        backend=backend_3d)
         return stages["reconstruction"].run(start_index, end_index)
@@ -183,6 +205,21 @@ def run_stages(stage: str, cfg: PipelineConfig, loader, source, save_dir: str, s
               "fast": [run_fused, run_crops, run_export],
               "all": [run_depth, run_enhance, run_crops, run_completion, run_elevation,
                       run_reconstruction, run_layout, run_export]}
+
+    def unload():
+        nonlocal backend, matcher, enhance, completion, elevation
+        registry.unload_all()
+        backend = None if "backend" in built else backend
+        matcher = None if "matcher" in built else matcher
+        enhance = None if "enhance" in built else enhance
+        completion = None if "completion" in built else completion
+        elevation = None if "elevation" in built else elevation
+        if own_stages:
+            stages.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    multi = len(routes[stage]) > 1
     for fn in routes[stage]:
         name = fn.__name__.replace("run_", "")
         with timer.measure(name):
@@ -190,6 +227,8 @@ def run_stages(stage: str, cfg: PipelineConfig, loader, source, save_dir: str, s
         timer.add_items(name, n)
         counts[name] = n
         print(f"[{name}] {n} images")
+        if multi and registry.loaded():  # every model this call builds is the registry's
+            unload()
     return counts
 
 
@@ -228,7 +267,8 @@ def main(argv=None, device=None) -> int:
     timer = StageTimer()
     run_stages(args.stage, cfg, loader, FileImageSource(images_root), args.save_dir,
                args.split, start, end, run_options=cfg_node.run, preset=preset, tiny=tiny,
-               device=device, timer=timer, instance_provider=provider)
+               device=device, timer=timer, instance_provider=provider,
+               ckpt_dir=cfg_node.models.ckpt_dir)
     print(timer.report())
     return 0
 

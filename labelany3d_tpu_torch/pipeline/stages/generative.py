@@ -13,8 +13,9 @@ Counterpart of `labelany3d_tpu/pipeline/stages/generative.py`:
 
 Each stage skips the artifacts that exist (resume). The generative backends
 (InvSR, the amodal completion, Zero123 elevation: `models/diffusion/`;
-TRELLIS: `models/trellis/`) come from `pipeline/backends.py`'s factories;
-Hunyuan3D is not ported, and its names raise there.
+TRELLIS: `models/trellis/`; Hunyuan3D: `models/svrm.py`,
+`models/spacecarve.py`, `models/diffusion/mvd.py`) come from
+`pipeline/backends.py`'s factories.
 """
 
 from __future__ import annotations

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "labelany3d_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "labelany3d_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "safetensors", "labelany3d_tpu")
 
 
 def test_import_leaves_jax_out():
@@ -49,6 +49,13 @@ def test_import_leaves_jax_out():
         "import labelany3d_tpu_torch.models.diffusion.mvd\n"
         "import labelany3d_tpu_torch.ops.sampling\n"
         "import labelany3d_tpu_torch.ops.knn\n"
+        "import labelany3d_tpu_torch.utils.safetensors_io\n"
+        "import labelany3d_tpu_torch.models.checkpoints\n"
+        "import labelany3d_tpu_torch.models.convert_cli\n"
+        "import labelany3d_tpu_torch.export.iou3d\n"
+        "import labelany3d_tpu_torch.export.evaluate\n"
+        "import labelany3d_tpu_torch.data.panoptic\n"
+        "from labelany3d_tpu_torch.models.convert_cli import CONVERTERS, _load_state\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
     )
@@ -90,6 +97,12 @@ def test_source_scan_finds_no_forbidden_import():
     assert {"svrm.py", "spacecarve.py"} <= {f.name for f in files if f.parent.name == "models"}
     assert (PKG / "models" / "diffusion" / "mvd.py") in files
     assert {"sampling.py", "knn.py"} <= {f.name for f in files if f.parent.name == "ops"}
+    # The store, the convert CLI, scoring and the panoptic conversion too.
+    assert {"checkpoints.py", "convert_cli.py"} <= \
+        {f.name for f in files if f.parent.name == "models"}
+    assert {"iou3d.py", "evaluate.py"} <= {f.name for f in files if f.parent.name == "export"}
+    assert (PKG / "data" / "panoptic.py") in files
+    assert (PKG / "utils" / "safetensors_io.py") in files
     bad = [(f.name, m) for f in files for m in _imports(f) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 
@@ -188,3 +201,22 @@ def test_hunyuan_entry_points_default_to_cuda(monkeypatch):
             make()
     rec = make_reconstruction("hunyuan3d", tiny=True, device="cpu")
     assert rec.device.type == rec.novel_views.device.type == "cpu"
+
+
+def test_scoring_defaults_to_cuda(monkeypatch, tmp_path):
+    """COCO3D scoring runs on CUDA unless the caller passes "cpu" (`main`'s
+    `--device` defaults to cuda); nothing falls back."""
+    import json
+
+    from labelany3d_tpu_torch.export import evaluate
+
+    empty = {"images": [{"id": 1, "file_path": "a.jpg"}], "annotations": []}
+    (tmp_path / "a.json").write_text(json.dumps(empty))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.compare_coco3d(empty, empty)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.main([str(tmp_path / "a.json"), str(tmp_path / "a.json")])
+    assert evaluate.compare_coco3d(empty, empty, device="cpu")["matched_pairs"] == 0
+    assert evaluate.main([str(tmp_path / "a.json"), str(tmp_path / "a.json"),
+                          "--device", "cpu"]) == 0

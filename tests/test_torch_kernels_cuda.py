@@ -435,3 +435,19 @@ def test_trellis_card_matches_cpu():
     assert res["launches"]["k1"] > 0 and res["launches"]["k2"] > 0
     for name in ("cond", "latent", "slat", "means"):
         assert res[name] <= chip_smoke.TRELLIS_REL_TOL, (name, res[name])
+
+
+@pytest.mark.cuda
+def test_scoring_card_matches_cpu():
+    """COCO3D scoring (`chip_smoke.py`'s phase 15(c)) at a small size: the
+    card's per-pair IoUs against the CPU's on the same matched pairs, within
+    `chip_smoke.SCORE_CARD_TOL`, and a file scored against itself gives 1.0."""
+    _cuda_or_skip()
+    import chip_smoke
+    from labelany3d_tpu_torch.export import evaluate
+
+    ours, theirs = chip_smoke.synthetic_coco3d_pair(64, 8, seed=121)
+    ca, cb, _ = evaluate.matched_corners(ours, theirs)
+    assert len(ca) > 256
+    assert chip_smoke.score_card_vs_cpu(ca, cb) <= chip_smoke.SCORE_CARD_TOL
+    assert evaluate.compare_coco3d(theirs, theirs, device="cuda")["mean_iou3d"] == 1.0
