@@ -74,7 +74,17 @@ weights from a seed:
     `obj_rec=trellis` reading the store through `ckpt_dir` over 1 image with
     2 objects (K1, K2, K3 and K4 launches, the runner freeing what it built
     between stages); `compare_coco3d` on the card over a seeded COCO3D pair
-    of 5,000 images x 8 boxes, the first pairs against the CPU.
+    of 5,000 images x 8 boxes, the first pairs against the CPU;
+  * DINOv2-giant, the SwiGLU ViT a TRELLIS pipeline.json may name as its
+    conditioner (width 1536, 40 blocks, 24 heads of 64 -> K1, 1.14 G
+    parameters): drawn in the torch-hub layout from a seed, written as
+    float16 safetensors, converted by the CLI's `trellis_cond` entry with a
+    pipeline.json naming it, read back bit for bit, and run at 518 px from
+    the store; at depth 2 on the card against the CPU, with a fault planted;
+    the trajectory video of a scene of the route from the store; and the
+    host code no route calls: the auction against scipy's Hungarian solver,
+    Kabsch and Umeyama, the native RLE codec against the numpy one, and a
+    `fast` batch under `trace`.
 
 Each phase prints one line; any failure exits non-zero. Without CUDA, or
 without the rest of the repository beside it, it exits non-zero and prints
@@ -88,6 +98,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -577,8 +588,14 @@ class SyntheticState(dict):
             self.norm(b + "norm2.", c)
             self.linear(b + "attn.qkv.", c, 3 * c)
             self.linear(b + "attn.proj.", c, c)
-            self.linear(b + "mlp.fc1.", c, hid)
-            self.linear(b + "mlp.fc2.", hid, c)
+            if cfg.swiglu:  # DINOv2-giant's SwiGLU (timm's SwiGLUFFNFused names)
+                from labelany3d_tpu_torch.models.vit import swiglu_hidden
+
+                self.linear(b + "mlp.w12.", c, 2 * swiglu_hidden(cfg))
+                self.linear(b + "mlp.w3.", swiglu_hidden(cfg), c)
+            else:
+                self.linear(b + "mlp.fc1.", c, hid)
+                self.linear(b + "mlp.fc2.", hid, c)
             if cfg.layerscale_init is not None:
                 self.rand(b + "ls1.gamma", c)
                 self.rand(b + "ls2.gamma", c)
@@ -3863,7 +3880,7 @@ def run_ckpt_route(tmp: str, store: str) -> dict:
            "max_memory_gb": max(timer.peaks_gb.values()), "stage_peak_gb": timer.peaks_gb,
            "allocated_after_gb": torch.cuda.memory_allocated() / 1e9,
            "caller_models_gb": caller_bytes / 1e9}
-    meshes, placed, with_boxes = [], 0, set()
+    meshes, placed, with_boxes = [], [], set()
     for info in loader.images:
         name = scene_dir_name(info["file_name"])
         sd = SceneDir(os.path.join(out_dir, "val", name))
@@ -3872,13 +3889,14 @@ def run_ckpt_route(tmp: str, store: str) -> dict:
                 m = load_glb(sd.object_mesh(i))
                 meshes.append((len(m.vertices), len(m.faces),
                                bool(np.isfinite(m.vertices).all())))
-        placed += (sd.root / "reconstruction" / "full_scene.glb").exists()
+        if (sd.root / "reconstruction" / "full_scene.glb").exists():
+            placed.append(str(sd.root))
         if sd.bbox3d.exists() and sd.read_bbox3d():
             with_boxes.add(name)
     with open(os.path.join(out_dir, "COCO3D_val.json")) as f:
         listed = {os.path.basename(im["file_path"]).rsplit(".", 1)[0]
                   for im in json.load(f)["images"]}
-    res["meshes"] = meshes
+    res["meshes"], res["placed_scenes"] = meshes, placed
     res["scenes_with_boxes"], res["coco3d_images"] = sorted(with_boxes), sorted(listed)
     layout = matcher_launches(matcher.cfg, res["forwards"])
     depth_k1 = (-(-CKPT_IMAGES // cfg.batch_size)
@@ -3886,7 +3904,7 @@ def run_ckpt_route(tmp: str, store: str) -> dict:
     k1, k2 = trellis_launches(TrellisPipelineConfig())
     n = len(meshes)
     res["want"] = {"k1": depth_k1 + k1 * n + layout["k1"], "k2": k2 * n + layout["k2"],
-                   "k3": layout["k3"], "k4": placed}
+                   "k3": layout["k3"], "k4": len(placed)}
     res["ok"] = (res["launches"] == res["want"] and not any(res["plain_calls"].values())
                  and n == CKPT_IMAGES * CKPT_INSTANCES
                  and all(f > 0 and fin for _, f, fin in meshes)
@@ -3980,6 +3998,479 @@ def run_ckpt(tmp: str) -> dict:
     return {"convert": conv, "route": route, "score": score}
 
 
+# Phase 16: DINOv2-giant's SwiGLU ViT (the TRELLIS conditioner a pipeline.json
+# may name) at full width through the store, the giant on the card against the
+# CPU, the trajectory video of a scene phase 15(b) wrote, and the host
+# leftovers that no route calls (the auction, Procrustes, the native RLE codec,
+# the profiler's trace) on the card.
+
+GIANT = "dinov2_vitg14_reg"
+GIANT_DISK_GB = 6.0        # the float16 source (2.27 GB) and the store beside it
+GIANT_SIZE = 518           # the conditioner's input: 37^2 patches of 14 px
+GIANT_WARM_RUNS = 5
+# The giant's bf16 card against the float32 CPU at full width and token count,
+# depth 2, the relative L2 of each block's attention output (K1 on the card)
+# and of the prenorm tokens. One bf16 rounding is 2^-9 = 2e-3 and the card
+# rounds the activations, the weights and P before the PV product; a lost
+# key tile moves an attention output by tens of percent.
+GIANT_REL_TOL = 2e-2
+TRAJECTORY_FRAMES = 90     # render_trajectory_video's defaults: 3 segments x 30
+AUCTION_PROBLEMS = 16      # 64 x 64 IoU matrices, a batch on the card
+AUCTION_N = 64
+AUCTION_EPS = 1e-4
+PROCRUSTES_TOL = 1e-4      # a noise-free similarity, float32 with TF32 off
+RLE_MASKS = 500            # COCO-scale instance masks at 480 x 640
+RLE_HW = (480, 640)
+TRACE_IMAGES = 8           # one `fast` batch
+
+
+def giant_config(depth: int | None = None):
+    """The TRELLIS conditioner's config for the giant (`cond_backbone_config`),
+    optionally cut to `depth` blocks."""
+    import dataclasses
+
+    from labelany3d_tpu_torch.models.convert_trellis import cond_backbone_config
+
+    cfg = cond_backbone_config(GIANT)
+    return cfg if depth is None else dataclasses.replace(cfg, depth=depth)
+
+
+def giant_state(cfg, seed: int, device: str = "cuda") -> dict:
+    """The torch-hub release's names and shapes for `cfg` (`SyntheticState`,
+    std 0.02), pos-embed over the cls entry and 37^2 patches."""
+    st = SyntheticState(seed, device=device)
+    st.vit("", cfg, n_pos=cfg.pos_grid[0] * cfg.pos_grid[1])
+    return st
+
+
+def giant_image(seed: int):
+    """A seeded ImageNet-normalised image, (1, 518, 518, 3) float32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(1, GIANT_SIZE, GIANT_SIZE, 3)).astype(np.float32)
+
+
+def run_giant_store(tmp: str) -> dict:
+    """Phase 16(b): the giant drawn in the torch-hub layout (seed 130, on the
+    card), written as float16 safetensors, converted by `python -m
+    labelany3d_tpu_torch.models.convert_cli trellis_cond` with a
+    `pipeline.json` naming the giant, read back and held bit for bit to the
+    in-memory conversion of the same float16 state; then the ViT built from
+    the store in bf16 and run at 518 px, batch 1, cold and warm, its K1
+    launches and plain calls counted over one warm forward."""
+    import numpy as np
+    import torch
+
+    from labelany3d_tpu_torch.models.checkpoints import flatten_tree, load_params
+    from labelany3d_tpu_torch.models.convert_trellis import convert_trellis_cond
+    from labelany3d_tpu_torch.models.vit import ViT
+    from labelany3d_tpu_torch.models.weights import build_module
+    from labelany3d_tpu_torch.utils.safetensors_io import save_file
+
+    free = shutil.disk_usage(tmp).free
+    res = {"disk_free_gb": free / 1e9}
+    if free < GIANT_DISK_GB * 1e9:
+        raise SystemExit(f"giant: {free / 1e9:.2f} GB free under {tmp}, the phase needs "
+                         f"{GIANT_DISK_GB} GB")
+    cfg = giant_config()
+    store, src = os.path.join(tmp, "giant_store"), os.path.join(tmp, "giant_src")
+    os.makedirs(src, exist_ok=True)
+    t0 = time.perf_counter()
+    state = {k: v.astype(np.float16) for k, v in giant_state(cfg, 130).items()}
+    res["draw_s"] = time.perf_counter() - t0
+    path = os.path.join(src, "dinov2_vitg14_reg4_pretrain_fp16.safetensors")
+    pipeline_json = os.path.join(src, "pipeline.json")
+    with open(pipeline_json, "w") as f:
+        json.dump({"image_cond_model": GIANT}, f)
+    t0 = time.perf_counter()
+    save_file(state, path)
+    res["write_s"] = time.perf_counter() - t0
+    res["source_bytes"] = os.path.getsize(path)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "labelany3d_tpu_torch.models.convert_cli", "trellis_cond", path,
+         "--out", store, "--config", pipeline_json], capture_output=True, text=True,
+        timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode:
+        raise SystemExit(f"giant: convert_cli exited {proc.returncode}: {proc.stderr[-2000:]}")
+    res["convert_s"] = time.perf_counter() - t0
+    res["cli"] = proc.stdout.strip()
+    shutil.rmtree(src)
+    t0 = time.perf_counter()
+    tree = load_params(store, "trellis_cond")
+    got, want = flatten_tree(tree), flatten_tree(convert_trellis_cond(state, name=GIANT))
+    res["load_s"] = time.perf_counter() - t0
+    res["store_bytes"] = sum(os.path.getsize(os.path.join(r, f))
+                             for r, _, fs in os.walk(store) for f in fs)
+    res["equal"] = set(got) == set(want) and all(
+        got[k].dtype == np.asarray(v).dtype and np.array_equal(got[k], v)
+        for k, v in want.items())
+    del state, got, want
+
+    counters, plains = kernel_counters()
+    t0 = time.perf_counter()
+    model = build_module(lambda: ViT(cfg, cfg.pos_grid), "cuda", tree, 0)
+    torch.cuda.synchronize()
+    res["build_s"] = time.perf_counter() - t0
+    del tree
+    res["parameters"] = sum(p.numel() for p in model.parameters())
+    x = torch.as_tensor(giant_image(131), device="cuda")
+
+    def forward():
+        with torch.inference_mode():
+            return model(x)["all_prenorm"]
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = forward()
+    torch.cuda.synchronize()
+    res["cold_s"] = time.perf_counter() - t0
+    for k in (*counters.values(), *plains.values()):
+        k.reset()
+    t0 = time.perf_counter()
+    out = forward()
+    torch.cuda.synchronize()
+    res["warm_s"] = time.perf_counter() - t0
+    res["launches"] = {k: v.count for k, v in counters.items()}
+    res["plain_calls"] = {k: v.count for k, v in plains.items()}
+    res["warm_ms"] = time_cuda(forward, iters=GIANT_WARM_RUNS, warmup=1)
+    res["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["tokens"] = list(out.shape)
+    res["finite"] = bool(torch.isfinite(out).all())
+    res["ok"] = (res["equal"] and res["launches"]["k1"] == cfg.depth
+                 and not any(res["plain_calls"].values()) and res["finite"]
+                 and res["tokens"] == [1, 1 + cfg.num_register_tokens + 37 * 37, cfg.width])
+    del model, out
+    shutil.rmtree(store)
+    torch.cuda.empty_cache()
+    return res
+
+
+def giant_card_vs_cpu(seed: int = 140) -> dict:
+    """Phase 16(c): the giant at full width and token count, cut to depth 2,
+    the same weights (std 0.02, LayerScale gammas 1 so each block's branches
+    weigh as much as the residual) and image: bf16 on the card (K1) against
+    float32 on the CPU (the plain attention, TF32 off). Read: the relative L2
+    of each block's attention output and of the prenorm tokens. Then a fault
+    planted on the card: K1 called with n_real cut to the last whole key tile
+    (the ragged tile of 94 keys lost in every block)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from labelany3d_tpu_torch.models import vit as vit_mod
+    from labelany3d_tpu_torch.models.convert import convert_dinov2_vit
+    from labelany3d_tpu_torch.models.vit import ViT
+    from labelany3d_tpu_torch.models.weights import build_module
+
+    cfg = giant_config(depth=2)
+    state = giant_state(cfg, seed)
+    for k in state:
+        if k.endswith(("ls1.gamma", "ls2.gamma")):
+            state[k] = np.ones_like(state[k])
+    tree = convert_dinov2_vit(state, cfg, cfg.pos_grid)
+    x = giant_image(seed + 1)
+    outs = {}
+    for dev, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        model = build_module(lambda: ViT(c, c.pos_grid), dev, tree, 0)
+        if dev == "cuda":
+            card = model
+        outs[dev] = _giant_outputs(model, torch.as_tensor(x, device=dev))
+
+    def rel(a, b):
+        return max(float((a[k].float() - b[k]).norm() / b[k].norm()) for k in b)
+
+    out = {"rel": rel(outs["cuda"], outs["cpu"]),
+           "by_output": {k: float((outs["cuda"][k].float() - v).norm() / v.norm())
+                         for k, v in outs["cpu"].items()}}
+    real = vit_mod.packed_sdpa
+    vit_mod.packed_sdpa = lambda qkv, h, n_real: real(qkv, h, n_real // 128 * 128)
+    try:
+        faulty = _giant_outputs(card, torch.as_tensor(x, device="cuda"))
+    finally:
+        vit_mod.packed_sdpa = real
+    out["fault_lost_tile_rel"] = rel(faulty, outs["cpu"])
+    out["ok"] = out["rel"] <= GIANT_REL_TOL < out["fault_lost_tile_rel"]
+    del card
+    torch.cuda.empty_cache()
+    return out
+
+
+def _giant_outputs(model, x) -> dict:
+    """Each block's attention output (hooked, real rows) and the prenorm
+    tokens, on the host; float32 matmuls with TF32 off."""
+    import torch
+
+    from labelany3d_tpu_torch.utils.precision import full_f32
+
+    got, hooks = {}, []
+    n_real = 1 + model.cfg.num_register_tokens + (x.shape[1] // model.cfg.patch_size) ** 2
+    for i in range(model.cfg.depth):
+        def hook(_, __, out, i=i):
+            got[f"block{i}_attn"] = out[:, :n_real].float().cpu()
+        hooks.append(getattr(model, f"block{i}").attn.register_forward_hook(hook))
+    try:
+        with torch.inference_mode(), full_f32():
+            got["all_prenorm"] = model(x)["all_prenorm"].float().cpu()
+    finally:
+        for h in hooks:
+            h.remove()
+    return got
+
+
+def run_trajectory(tmp: str, scene_root: str) -> dict:
+    """Phase 16(d): `render_trajectory_video` over a scene of 15(b) (its
+    placed TRELLIS meshes and boxes) at the defaults, 3 x 30 frames at the
+    scene's W x H on the card; the mp4 read back with cv2."""
+    import cv2
+
+    from labelany3d_tpu_torch.pipeline.scene import SceneDir
+    from labelany3d_tpu_torch.utils.trajectory import render_trajectory_video
+
+    sd = SceneDir(scene_root)
+    cam = sd.read_cam_params()
+    out = os.path.join(tmp, "trajectory.mp4")
+    t0 = time.perf_counter()
+    render_trajectory_video(sd, out, device="cuda")
+    res = {"s": time.perf_counter() - t0, "W": cam["W"], "H": cam["H"],
+           "boxes": len(sd.read_bbox3d())}
+    res["frames_per_s"] = TRAJECTORY_FRAMES / res["s"]
+    cap = cv2.VideoCapture(out)
+    frames, stds = 0, []
+    shapes = set()
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames += 1
+        shapes.add(frame.shape)
+        stds.append(float(frame.std()))
+    cap.release()
+    res.update(frames=frames, shapes=sorted(map(list, shapes)), mb=os.path.getsize(out) / 1e6,
+               min_frame_std=min(stds) if stds else 0.0)
+    w, h = cam["W"] - cam["W"] % 2, cam["H"] - cam["H"] % 2
+    res["ok"] = (frames == TRAJECTORY_FRAMES and shapes == {(h, w, 3)}
+                 and res["min_frame_std"] > 0.0)
+    return res
+
+
+def run_auction(seed: int = 150) -> dict:
+    """Phase 16(e), the auction: AUCTION_PROBLEMS IoU matrices of 64 x 64
+    seeded boxes in a batch on the card, 4 to 12 padding rows and 0 to 4
+    invalid columns each, against scipy's `hungarian_match` on each
+    problem's valid boxes: the totals within n * eps."""
+    import numpy as np
+    import torch
+
+    from labelany3d_tpu_torch.export.hungarian import (
+        auction_assignment,
+        hungarian_match,
+        iou2d_matrix,
+    )
+
+    rng = np.random.default_rng(seed)
+    n = AUCTION_N
+    xy = rng.uniform(0, 600, (AUCTION_PROBLEMS, 2, n, 2))
+    wh = rng.uniform(20, 160, (AUCTION_PROBLEMS, 2, n, 2))
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    boxes[:, 1, :n // 2] = boxes[:, 0, :n // 2] + rng.normal(0, 4, (AUCTION_PROBLEMS, n // 2, 4))
+    row_valid = np.arange(n)[None] < n - rng.integers(4, 13, (AUCTION_PROBLEMS, 1))
+    col_valid = np.ones((AUCTION_PROBLEMS, n), bool)
+    for p in range(AUCTION_PROBLEMS):
+        col_valid[p, rng.choice(n, rng.integers(0, 5), replace=False)] = False
+    b = torch.as_tensor(boxes, device="cuda")
+    iou = iou2d_matrix(b[:, 0], b[:, 1])
+    rv, cv = (torch.as_tensor(a, device="cuda") for a in (row_valid, col_valid))
+    got = auction_assignment(iou, rv, cv, eps=AUCTION_EPS)
+    ms = time_cuda(lambda: auction_assignment(iou, rv, cv, eps=AUCTION_EPS), iters=3,
+                   warmup=1)
+    got, iou_h = got.cpu().numpy(), iou.cpu().numpy()
+    gaps = []
+    for p in range(AUCTION_PROBLEMS):
+        total = sum(float(iou_h[p, r, c]) for r, c in enumerate(got[p]) if c >= 0)
+        best = sum(v for _, _, v in hungarian_match(boxes[p, 0][row_valid[p]],
+                                                    boxes[p, 1][col_valid[p]]))
+        gaps.append(best - total)
+    assigned_ok = all(
+        (got[p][row_valid[p]] >= 0).all() and (got[p][~row_valid[p]] == -1).all()
+        and col_valid[p][got[p][got[p] >= 0]].all()
+        and len(set(got[p][got[p] >= 0].tolist())) == int((got[p] >= 0).sum())
+        for p in range(AUCTION_PROBLEMS))
+    return {"problems": AUCTION_PROBLEMS, "n": n, "ms": ms, "max_gap": max(gaps),
+            "limit": n * AUCTION_EPS, "assigned_ok": assigned_ok,
+            "ok": assigned_ok and max(gaps) <= n * AUCTION_EPS}
+
+
+def run_procrustes(seed: int = 151) -> dict:
+    """Phase 16(e), Procrustes: `kabsch` and `umeyama` on the card recovering
+    a seeded similarity transform (a batch of 8, 1000 points each, uniform
+    weights and seeded ones)."""
+    import torch
+
+    from labelany3d_tpu_torch.geometry.procrustes import kabsch, umeyama
+    from labelany3d_tpu_torch.geometry.transforms import so3_exp
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    src = torch.randn(8, 1000, 3, device="cuda", generator=g)
+    r = so3_exp(torch.randn(8, 3, device="cuda", generator=g))
+    s = torch.rand(8, device="cuda", generator=g) * 2.0 + 0.5
+    t = torch.randn(8, 3, device="cuda", generator=g)
+    dst = s[:, None, None] * torch.einsum("bij,bnj->bni", r, src) + t[:, None]
+    w = torch.rand(8, 1000, device="cuda", generator=g) + 0.1
+    out = {}
+    for name, weights in (("uniform", None), ("weighted", w)):
+        sim = umeyama(src, dst, weights)
+        out[f"umeyama_{name}_err"] = max(float((sim.rotation - r).abs().max()),
+                                         float((sim.scale - s).abs().max()),
+                                         float((sim.translation - t).abs().max()))
+        rk, tk = kabsch(src, dst / s[:, None, None], weights)
+        out[f"kabsch_{name}_err"] = max(float((rk - r).abs().max()),
+                                        float((tk - t / s[:, None]).abs().max()))
+    out["ok"] = all(v <= PROCRUSTES_TOL for v in out.values())
+    return out
+
+
+def rle_masks(seed: int = 152):
+    """RLE_MASKS seeded instance masks of RLE_HW: 1 to 4 ellipses each."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:RLE_HW[0], :RLE_HW[1]]
+    out = []
+    for _ in range(RLE_MASKS):
+        m = np.zeros(RLE_HW, bool)
+        for _ in range(rng.integers(1, 5)):
+            cy, cx = rng.uniform(0, RLE_HW[0]), rng.uniform(0, RLE_HW[1])
+            ry, rx = rng.uniform(3, 150), rng.uniform(3, 200)
+            m |= ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1.0
+        out.append(m)
+    return out
+
+
+def run_rle() -> dict:
+    """Phase 16(e), the native RLE codec: built with g++ on this machine,
+    every mask encoded to a string and decoded back through the native path,
+    then through the numpy path; the outputs equal and the masks restored.
+    Both paths timed (host clock), the calls each served counted."""
+    import numpy as np
+
+    from labelany3d_tpu_torch import native
+    from labelany3d_tpu_torch.data import rle
+    from labelany3d_tpu_torch.utils import logging as plog
+
+    masks = rle_masks()
+    t0 = time.perf_counter()
+    lib = native.load_rle()
+    res = {"build_s": time.perf_counter() - t0, "library": str(native.library_path()),
+           "built": lib is not None}
+
+    def codec():
+        t0 = time.perf_counter()
+        enc = [rle.rle_encode(m) for m in masks]
+        dec = [rle.rle_decode(e) for e in enc]
+        return time.perf_counter() - t0, enc, dec
+
+    before = dict(rle.PATHS)
+    res["native_s"], enc_n, dec_n = codec()
+    res["native_calls"] = rle.PATHS["native"] - before["native"]
+    # The numpy pass, as where no compiler is (its one-time warning kept
+    # quiet: the library was built).
+    real, seen = native.load_rle, "rle_numpy" in plog._seen
+    native.load_rle = lambda: None
+    plog._seen.add("rle_numpy")
+    try:
+        res["numpy_s"], enc_p, dec_p = codec()
+    finally:
+        native.load_rle = real
+        if not seen:
+            plog._seen.discard("rle_numpy")
+    res["numpy_calls"] = rle.PATHS["numpy"] - before["numpy"]
+    res["equal"] = (all(a["counts"] == b["counts"] for a, b in zip(enc_n, enc_p))
+                    and all(np.array_equal(a, m) and np.array_equal(b, m)
+                            for a, b, m in zip(dec_n, dec_p, masks)))
+    res["areas_equal"] = all(rle.rle_area(e) == int(m.sum()) for e, m in zip(enc_n, masks))
+    res["masks"] = len(masks)
+    res["ok"] = (res["built"] and res["equal"] and res["areas_equal"]
+                 and res["native_calls"] == res["numpy_calls"] == 4 * len(masks))
+    return res
+
+
+def run_trace(tmp: str) -> dict:
+    """Phase 16(e), `trace` and `annotate`: one warm `fast` batch (8 synthetic
+    images at the `large` preset) under `trace`, inside an `annotate` range;
+    the Chrome trace must exist and hold the range and K1's kernel."""
+    import torch
+
+    from labelany3d_tpu_torch.pipeline.backends import default_registry
+    from labelany3d_tpu_torch.pipeline.config import PipelineConfig
+    from labelany3d_tpu_torch.pipeline.runner import run_stages
+    from labelany3d_tpu_torch.pipeline.stages.common import ArrayImageSource
+    from labelany3d_tpu_torch.utils.profiling import annotate, trace
+
+    cfg = PipelineConfig()
+    loader = SyntheticLoader(TRACE_IMAGES, IMAGE_HW, seed=16)
+    source = ArrayImageSource(loader.pixels)
+    backend = default_registry().get("depth", preset="large", pin_hw=cfg.bucket_sizes()[0],
+                                     device="cuda", seed=cfg.seed)
+
+    def batch(name):
+        run_stages("fast", cfg, loader, source, os.path.join(tmp, name), "val", 0,
+                   TRACE_IMAGES, backend=backend, device="cuda")
+
+    batch("trace_cold")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with trace(os.path.join(tmp, "trace")) as prof:
+        with annotate("fast_batch"):
+            batch("trace_warm")
+    res = {"s": time.perf_counter() - t0, "file": os.path.basename(prof.trace_path),
+           "mb": os.path.getsize(prof.trace_path) / 1e6}
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    res["annotate_ranges"] = sum(e.get("name") == "fast_batch" for e in events)
+    res["k1_kernels"] = sum(PROFILE_NAMES["k1"] in str(e.get("name", "")) for e in events
+                            if e.get("cat") == "kernel")
+    res["events"] = len(events)
+    res["ok"] = res["annotate_ranges"] >= 1 and res["k1_kernels"] > 0
+    del backend, prof, events
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_giant(tmp: str, scene_root: str) -> dict:
+    """Phase 16: (b) the giant through the store, (c) its card against the
+    CPU, (d) the trajectory video, (e) the host leftovers; prints each
+    part's line. (16(a), K1 at the giant's shape, is in phase 3.)"""
+    out = {}
+    out["store"] = g = run_giant_store(tmp)
+    _say("giant:store", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                           for k, v in g.items()})
+    if not g["ok"]:
+        raise SystemExit("giant: the store is not bit-equal, or the forward's launches, plain "
+                         "calls or tokens are not as required (see giant:store)")
+    out["check"] = c = giant_card_vs_cpu()
+    _say("giant:card_vs_cpu", rel=c["rel"], by_output=json.dumps(c["by_output"]),
+         fault_lost_tile_rel=c["fault_lost_tile_rel"], rel_tol=GIANT_REL_TOL)
+    if not c["ok"]:
+        raise SystemExit("giant: the card disagrees with the CPU, or the planted fault stays "
+                         "under the limit (see giant:card_vs_cpu)")
+    out["trajectory"] = t = run_trajectory(tmp, scene_root)
+    _say("giant:trajectory", **{k: json.dumps(v) if isinstance(v, list) else v
+                                for k, v in t.items()})
+    if not t["ok"]:
+        raise SystemExit("trajectory: the mp4 does not hold 90 frames of W x H with content")
+    for name, fn in (("auction", run_auction), ("procrustes", run_procrustes),
+                     ("rle", run_rle), ("trace", lambda: run_trace(tmp))):
+        out[name] = r = fn()
+        _say(f"giant:{name}", **r)
+        if not r["ok"]:
+            raise SystemExit(f"host leftovers: {name} is not as required (see giant:{name})")
+    return out
+
+
 def module_version(name: str) -> str:
     """An optional module's version, or "missing" (the overlay needs OpenCV)."""
     try:
@@ -4052,7 +4543,10 @@ def main() -> int:
               "trellis_cond": dict(b=1, n_pad=1408, n_real=1374, heads=16, d=64),
               # Stage 5's elevation matcher (tiny: width 64, 2 heads of 32)
               # over a pair of 256^2 Zero123 views: 1 + 32^2 tokens.
-              "elevation_matcher": dict(b=2, n_pad=1152, n_real=1025, heads=2, d=32)}
+              "elevation_matcher": dict(b=2, n_pad=1152, n_real=1025, heads=2, d=32),
+              # DINOv2-giant (phase 16): width 1536, 24 heads of 64, the
+              # same 1 + 4 + 37^2 tokens at 518^2, one image at a time.
+              "giant": dict(b=1, n_pad=1408, n_real=1374, heads=24, d=64)}
     k1 = {}
     for i, (name, shape) in enumerate(shapes.items()):
         k1[name] = check_attention(shape, seed=i, graph=name == "elevation_matcher")
@@ -4260,6 +4754,14 @@ def main() -> int:
         # at full width, the all route reading it, scoring on the card.
         ckpt = run_ckpt(tmp)
         croute = ckpt["route"]
+        shutil.rmtree(ckpt["convert"]["store"])  # 3.42 GB phase 16 has no use for
+
+        # 16. DINOv2-giant through the store, its card against the CPU, the
+        # trajectory video of a scene 15(b) placed objects in, and the host
+        # leftovers (auction, Procrustes, the native RLE codec, the trace).
+        if not croute["placed_scenes"]:
+            raise SystemExit("ckpt route: no scene holds a placed mesh for the trajectory")
+        giant = run_giant(tmp, croute["placed_scenes"][0])
 
     def row(name, source, replaces, launches, r, max_abs_err, **extra):
         return {"name": name, "route": "cuda", "source": f"labelany3d_tpu_torch/csrc/{source}",
@@ -4290,12 +4792,14 @@ def main() -> int:
             launches_wild_route=wild["route"]["launches"]["k1"],
             launches_wild_cli=wild["cli"]["k1_launches"],
             launches_ckpt_route=croute["launches"]["k1"],
+            launches_giant_forward=giant["store"]["launches"]["k1"],
             shape="MoGe B=8 Npad=1408 n_real=1297 H=16 d=64", design=design,
             ratio_to_library=k1["moge"]["ratio_to_library"],
             share_of_bound=k1["moge"]["share_of_bound"], sass=sass["k1"],
             **{name: {k: k1[name][k] for k in timed if k in k1[name]}
                for name in ("depth_pro", "matcher", "depth_pro35_patch",
-                            "depth_pro35_image", "trellis_cond", "elevation_matcher")}),
+                            "depth_pro35_image", "trellis_cond", "elevation_matcher",
+                            "giant")}),
         row("flash_attention", "flash_attention.cu", "labelany3d_tpu/ops/attention.py:42",
             reg["launches"]["k2"], k2["path"], max(r["max_abs_err"] for r in k2.values()),
             launches_reference_chain=ref["launches"]["k2"],

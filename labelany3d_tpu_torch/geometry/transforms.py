@@ -1,10 +1,11 @@
 """Rotation primitives, batched over leading dims; counterpart of
-`labelany3d_tpu/geometry/transforms.py` (what the box fit and PnP use)."""
+`labelany3d_tpu/geometry/transforms.py`."""
 
 from __future__ import annotations
 
 import torch
 
+from labelany3d_tpu_torch.utils.device import tensors_on
 from labelany3d_tpu_torch.utils.precision import f32_precision
 
 _EPS = 1e-12
@@ -72,3 +73,31 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(k.shape)
     r = eye + torch.sin(t) * k + (1.0 - torch.cos(t)) * (k @ k)
     return torch.where(norm[..., None] < 1e-8, eye + skew(w), r)
+
+
+def so3_log(r: torch.Tensor) -> torch.Tensor:
+    """Logarithm map SO(3) -> so(3); returns (..., 3) rotation vectors
+    (first order near theta = 0)."""
+    trace = r[..., 0, 0] + r[..., 1, 1] + r[..., 2, 2]
+    theta = torch.arccos(((trace - 1.0) / 2.0).clamp(-1.0, 1.0))
+    axis_unnorm = torch.stack([r[..., 2, 1] - r[..., 1, 2],
+                               r[..., 0, 2] - r[..., 2, 0],
+                               r[..., 1, 0] - r[..., 0, 1]], dim=-1)
+    sin_theta = torch.sin(theta)[..., None]
+    scale = torch.where(sin_theta.abs() > 1e-6,
+                        theta[..., None] / (2.0 * sin_theta).clamp_min(_EPS),
+                        0.5 + theta[..., None] ** 2 / 12.0)
+    return axis_unnorm * scale
+
+
+def compose_transform(r, t, scale=None, *, device=None) -> torch.Tensor:
+    """(..., 4, 4) homogeneous transforms from rotations (..., 3, 3) (times
+    an optional (...) scale) and translations (..., 3), broadcast together."""
+    r, t, scale = tensors_on(r, t, scale, device=device)
+    if scale is not None:
+        r = r * scale[..., None, None]
+    batch = torch.broadcast_shapes(r.shape[:-2], t.shape[:-1])
+    out = torch.eye(4, dtype=r.dtype, device=r.device).expand(*batch, 4, 4).clone()
+    out[..., :3, :3] = r
+    out[..., :3, 3] = t
+    return out

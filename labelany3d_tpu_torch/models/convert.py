@@ -37,7 +37,8 @@ def convert_dinov2_vit(state: dict, cfg, grid_hw: tuple[int, int]) -> dict:
 
     Args:
       state: name -> numpy array (torch tensors: pass `.numpy()`).
-      cfg: matching `models.vit.ViTConfig` (width/depth/heads/patch agree).
+      cfg: matching `models.vit.ViTConfig` (width/depth/heads/patch/swiglu
+        agree; a SwiGLU config reads `mlp.w12` and `mlp.w3`).
       grid_hw: (gh, gw) token grid of the checkpoint's pos_embed.
     """
     gh, gw = grid_hw
@@ -76,12 +77,9 @@ def convert_dinov2_vit(state: dict, cfg, grid_hw: tuple[int, int]) -> dict:
                          "bias": np.asarray(state[pre + "attn.proj.bias"])},
             },
         }
-        blk["mlp"] = {
-            "fc1": {"kernel": _t(state[pre + "mlp.fc1.weight"]),
-                    "bias": np.asarray(state[pre + "mlp.fc1.bias"])},
-            "fc2": {"kernel": _t(state[pre + "mlp.fc2.weight"]),
-                    "bias": np.asarray(state[pre + "mlp.fc2.bias"])},
-        }
+        names = ("w12", "w3") if cfg.swiglu else ("fc1", "fc2")
+        blk["mlp"] = {n: {"kernel": _t(state[pre + f"mlp.{n}.weight"]),
+                          "bias": np.asarray(state[pre + f"mlp.{n}.bias"])} for n in names}
         if cfg.layerscale_init is not None:
             blk["ls1"] = {"gamma": np.asarray(state[pre + "ls1.gamma"])}
             blk["ls2"] = {"gamma": np.asarray(state[pre + "ls2.gamma"])}

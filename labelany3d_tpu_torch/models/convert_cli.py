@@ -151,9 +151,10 @@ def _trellis_cond(state, tiny, cfg_json=None):
     from labelany3d_tpu_torch.models.convert_trellis import convert_trellis_cond
     from labelany3d_tpu_torch.models.vit import ViTConfig
 
-    if tiny:
-        return convert_trellis_cond(state, ViTConfig.tiny_test(pos_grid=(4, 4)))
     name = (cfg_json or {}).get("image_cond_model", "dinov2_vitl14_reg")
+    if tiny:  # the giant's SwiGLU MLP when pipeline.json names it (JAX ignores the name)
+        return convert_trellis_cond(state, ViTConfig.tiny_test(pos_grid=(4, 4),
+                                                               swiglu="vitg14" in name))
     return convert_trellis_cond(state, name=name)
 
 

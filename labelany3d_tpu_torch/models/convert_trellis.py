@@ -411,9 +411,8 @@ def cond_backbone_config(name: str = "dinov2_vitl14_reg"):
 
     grid = (37, 37)  # 518 / 14
     if "vitg14" in name:
-        raise NotImplementedError("DINOv2-giant's SwiGLU ViT is not ported (ROADMAP.md "
-                                  "queue 1 item 4)")
-    if "vitl14" in name:
+        cfg = ViTConfig.giant(pos_grid=grid)
+    elif "vitl14" in name:
         cfg = ViTConfig.large(pos_grid=grid)
     elif "vitb14" in name:
         cfg = ViTConfig.base(pos_grid=grid)

@@ -36,6 +36,7 @@ class ViTConfig:
     num_register_tokens: int = 0
     use_class_token: bool = True
     layerscale_init: float | None = 1e-5
+    swiglu: bool = False            # DINOv2-giant's SwiGLU MLP (w12, w3)
     pos_embed: str = "learned"      # 'learned' | 'rope2d' (CroCo/MASt3R)
     dtype: torch.dtype = torch.bfloat16
     out_indices: Sequence[int] = ()
@@ -59,18 +60,37 @@ class ViTConfig:
         return ViTConfig(width=1024, depth=24, num_heads=16, **kw)
 
     @staticmethod
+    def giant(**kw) -> "ViTConfig":
+        return ViTConfig(width=1536, depth=40, num_heads=24, swiglu=True, **kw)
+
+    @staticmethod
     def tiny_test(**kw) -> "ViTConfig":
         return ViTConfig(width=64, depth=2, num_heads=2, patch_size=8, **kw)
+
+
+def swiglu_hidden(cfg: ViTConfig) -> int:
+    """DINOv2's SwiGLU hidden width: 2/3 of the GELU MLP's, rounded up to
+    a multiple of 8 (4096 at width 1536)."""
+    return (int(int(cfg.width * cfg.mlp_ratio) * 2 / 3) + 7) // 8 * 8
 
 
 class Mlp(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
-        hidden = int(cfg.width * cfg.mlp_ratio)
-        self.fc1 = Dense(cfg.width, hidden, cfg.dtype)
-        self.fc2 = Dense(hidden, cfg.width, cfg.dtype)
+        self.swiglu = cfg.swiglu
+        if cfg.swiglu:
+            hidden = swiglu_hidden(cfg)
+            self.w12 = Dense(cfg.width, 2 * hidden, cfg.dtype)
+            self.w3 = Dense(hidden, cfg.width, cfg.dtype)
+        else:
+            hidden = int(cfg.width * cfg.mlp_ratio)
+            self.fc1 = Dense(cfg.width, hidden, cfg.dtype)
+            self.fc2 = Dense(hidden, cfg.width, cfg.dtype)
 
     def forward(self, x):
+        if self.swiglu:
+            x1, x2 = self.w12(x).chunk(2, dim=-1)
+            return self.w3(F.silu(x1) * x2)
         # Exact-erf GELU on every dtype (the JAX package's bf16 tanh form
         # clamps inputs at 10; the port keeps the checkpoint's activation).
         return self.fc2(F.gelu(self.fc1(x)))

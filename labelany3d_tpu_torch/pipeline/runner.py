@@ -42,7 +42,7 @@ import gc
 import torch
 
 from labelany3d_tpu_torch.pipeline.config import PipelineConfig, load_config
-from labelany3d_tpu_torch.utils.profiling import StageTimer
+from labelany3d_tpu_torch.utils.profiling import GLOBAL_TIMER, StageTimer
 
 _STAGES = [
     "depth", "enhance", "crops", "completion", "elevation",
@@ -264,12 +264,11 @@ def main(argv=None, device=None) -> int:
     start = min(args.start_index, end)
     tiny = bool(cfg_node.models.tiny)
     preset = "tiny_test" if tiny else str(cfg_node.models.moge.preset)
-    timer = StageTimer()
     run_stages(args.stage, cfg, loader, FileImageSource(images_root), args.save_dir,
                args.split, start, end, run_options=cfg_node.run, preset=preset, tiny=tiny,
-               device=device, timer=timer, instance_provider=provider,
+               device=device, timer=GLOBAL_TIMER, instance_provider=provider,
                ckpt_dir=cfg_node.models.ckpt_dir)
-    print(timer.report())
+    print(GLOBAL_TIMER.report())
     return 0
 
 

@@ -237,3 +237,29 @@ def register_objects(objects: list[ObjectToRegister], K_img: np.ndarray, image_h
             render_depth=finals[j].depth, render_mask=finals[j].depth > 0,
             num_inliers=inl, error=err, ok=True)
     return results  # type: ignore[return-value]
+
+
+def register_object(mesh: Mesh, ref_crop_rgba: np.ndarray, elevation_deg: float,
+                    crop_params: tuple[float, float, float], K_img: np.ndarray, image_hw,
+                    scene_depth: np.ndarray, scene_mask: np.ndarray,
+                    matcher: MatcherBackend, *, renderer: OrbitRenderer | None = None,
+                    reproj_threshold: float = 20.0, draws: DrawFn | None = None,
+                    generator: torch.Generator | None = None) -> RegistrationResult:
+    """Register one generated mesh into the scene (the batch of one)."""
+    return register_objects(
+        [ObjectToRegister(mesh, ref_crop_rgba, elevation_deg, crop_params, scene_mask)],
+        K_img, image_hw, scene_depth, matcher, renderer=renderer,
+        reproj_threshold=reproj_threshold, draws=draws, generator=generator)[0]
+
+
+def align_to_depth_match(mesh: Mesh, mask: np.ndarray, depth_map: np.ndarray,
+                         ref_crop_rgba: np.ndarray, elevation_deg: float, crop_params,
+                         K_img: np.ndarray, matcher: MatcherBackend, *,
+                         renderer: OrbitRenderer | None = None, draws: DrawFn | None = None,
+                         generator: torch.Generator | None = None) -> np.ndarray:
+    """The reference's `align_to_depth_match`: the 4x4 scene-placement
+    transform, the identity when registration fails."""
+    res = register_object(mesh, ref_crop_rgba, elevation_deg, crop_params, K_img,
+                          depth_map.shape, depth_map, mask, matcher, renderer=renderer,
+                          draws=draws, generator=generator)
+    return res.transform if res.ok else np.eye(4)

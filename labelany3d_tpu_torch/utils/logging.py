@@ -13,3 +13,8 @@ def warn_once(key: str, message: str) -> None:
         return
     _seen.add(key)
     print(f"[labelany3d_tpu_torch] WARNING: {message}", file=sys.stderr)
+
+
+def reset_warnings() -> None:
+    """Forget every key seen, so each warning prints again (a test hook)."""
+    _seen.clear()

@@ -1,13 +1,18 @@
-"""Per-stage timing.
+"""Tracing and per-stage timing.
 
-Counterpart of `StageTimer` in `labelany3d_tpu/utils/profiling.py`: wall
-clock and item counts per stage. Device traces come from `torch.profiler`
-directly (see `chip_smoke.py`).
+Counterpart of `labelany3d_tpu/utils/profiling.py`:
+  * `StageTimer`: wall clock and item counts per stage; `GLOBAL_TIMER` is
+    the one the runner's CLI reports at exit;
+  * `trace(logdir)`: a `torch.profiler` run of the host and, when there is
+    one, the card, written as a Chrome trace under `logdir`;
+  * `annotate(name)`: a named range in that trace, and an NVTX range on the
+    card for other tools.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
@@ -49,3 +54,49 @@ class StageTimer:
             lines.append(f"{name:<20} {s.total_seconds:>9.2f} {s.calls:>7} {s.items:>8} "
                          f"{s.items_per_second:>9.2f}")
         return "\n".join(lines)
+
+
+GLOBAL_TIMER = StageTimer()
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Profile the block (CPU activity, and CUDA activity when a card is
+    present) and write `<logdir>/trace_<pid>_<ms>.json` (Chrome trace format,
+    readable by chrome://tracing or Perfetto). Yields the profiler, whose
+    `key_averages()` summarise the block; its trace file is
+    `trace_path` once the block has ended."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.stop()
+        prof.trace_path = os.path.join(
+            logdir, f"trace_{os.getpid()}_{int(time.time() * 1e3)}.json")
+        prof.export_chrome_trace(prof.trace_path)
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """A named range in the profiler's trace (`record_function`), and an NVTX
+    range when CUDA is present."""
+    import torch
+
+    nvtx = torch.cuda.is_available()
+    if nvtx:
+        torch.cuda.nvtx.range_push(name)
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        if nvtx:
+            torch.cuda.nvtx.range_pop()

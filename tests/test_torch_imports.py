@@ -55,6 +55,17 @@ def test_import_leaves_jax_out():
         "import labelany3d_tpu_torch.export.iou3d\n"
         "import labelany3d_tpu_torch.export.evaluate\n"
         "import labelany3d_tpu_torch.data.panoptic\n"
+        "import labelany3d_tpu_torch.geometry.procrustes\n"
+        "import labelany3d_tpu_torch.geometry.camera\n"
+        "import labelany3d_tpu_torch.geometry.masks\n"
+        "import labelany3d_tpu_torch.export.hungarian\n"
+        "import labelany3d_tpu_torch.registration.process\n"
+        "import labelany3d_tpu_torch.utils.trajectory\n"
+        "import labelany3d_tpu_torch.utils.profiling\n"
+        "import labelany3d_tpu_torch.native\n"
+        "from labelany3d_tpu_torch.data import rle\n"
+        "rle.rle_decode(rle.rle_encode(__import__('numpy').eye(4, dtype=bool)))\n"
+        "assert rle.PATHS['native'] + rle.PATHS['numpy'] == 4\n"
         "from labelany3d_tpu_torch.models.convert_cli import CONVERTERS, _load_state\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
@@ -103,6 +114,12 @@ def test_source_scan_finds_no_forbidden_import():
     assert {"iou3d.py", "evaluate.py"} <= {f.name for f in files if f.parent.name == "export"}
     assert (PKG / "data" / "panoptic.py") in files
     assert (PKG / "utils" / "safetensors_io.py") in files
+    # The host leftovers, the trajectory video and the native codec's loader.
+    assert {"procrustes.py", "camera.py", "masks.py", "transforms.py"} <= \
+        {f.name for f in files if f.parent.name == "geometry"}
+    assert {"trajectory.py", "profiling.py", "logging.py"} <= \
+        {f.name for f in files if f.parent.name == "utils"}
+    assert (PKG / "native" / "__init__.py") in files and (PKG / "native" / "rle.cpp").exists()
     bad = [(f.name, m) for f in files for m in _imports(f) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 
@@ -220,3 +237,51 @@ def test_scoring_defaults_to_cuda(monkeypatch, tmp_path):
     assert evaluate.compare_coco3d(empty, empty, device="cpu")["matched_pairs"] == 0
     assert evaluate.main([str(tmp_path / "a.json"), str(tmp_path / "a.json"),
                           "--device", "cpu"]) == 0
+
+
+def test_host_leftovers_default_to_cuda(monkeypatch, tmp_path):
+    """The camera and procrustes functions, the auction, the mask statistics
+    and the trajectory renderer run on CUDA when given numpy arrays, unless
+    the caller passes "cpu"; nothing falls back. Given tensors, they compute
+    where the tensors live."""
+    import numpy as np
+
+    from labelany3d_tpu_torch.export.hungarian import auction_assignment, iou2d_matrix
+    from labelany3d_tpu_torch.geometry import camera, masks, procrustes, transforms
+    from labelany3d_tpu_torch.pipeline.scene import SceneDir
+    from labelany3d_tpu_torch.utils.trajectory import render_trajectory_video
+
+    pts = np.random.default_rng(0).normal(size=(6, 3)).astype(np.float32)
+    K = np.eye(3, dtype=np.float32)
+    calls = {
+        "kabsch": lambda **kw: procrustes.kabsch(pts, pts, **kw),
+        "umeyama": lambda **kw: procrustes.umeyama(pts, pts, **kw),
+        "look_at": lambda **kw: camera.look_at(pts[0], pts[1], **kw),
+        "orbit_camera": lambda **kw: camera.orbit_camera(10.0, 20.0, **kw),
+        "project_points": lambda **kw: camera.project_points(pts, K, **kw),
+        "point_to_plane_distance": lambda **kw: camera.point_to_plane_distance(
+            np.float32([0, 0, 1, 0]), pts, **kw),
+        "scale_intrinsics": lambda **kw: camera.scale_intrinsics(K, 2.0, 2.0, **kw),
+        "normalized_to_pixel_intrinsics": lambda **kw: camera.normalized_to_pixel_intrinsics(
+            K, 64, 48, **kw),
+        "compose_transform": lambda **kw: transforms.compose_transform(K, pts[0], **kw),
+        "auction_assignment": lambda **kw: auction_assignment(np.eye(3), **kw),
+        "iou2d_matrix": lambda **kw: iou2d_matrix(np.ones((2, 4)), np.ones((3, 4)), **kw),
+        "analyze_mask": lambda **kw: masks.analyze_mask(np.ones((3, 16, 16), bool), **kw),
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+        out = call(device="cpu")
+        first = out[0] if isinstance(out, tuple) else out
+        assert first.device.type == "cpu", name
+    assert procrustes.kabsch(torch.from_numpy(pts), pts)[0].device.type == "cpu"
+    sd = SceneDir(tmp_path)
+    (tmp_path / "reconstruction").mkdir()
+    from labelany3d_tpu_torch.data.meshio import Mesh, save_glb
+
+    save_glb(tmp_path / "reconstruction" / "full_scene.glb",
+             Mesh(pts[:3], np.array([[0, 1, 2]], np.int32)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render_trajectory_video(sd, str(tmp_path / "v.mp4"), frames_per_segment=1)

@@ -49,6 +49,28 @@ def test_packed_attention_kernel_matches_plain(b, n_pad, n_real):
     assert ((got - want).norm() / want.norm()).item() <= REL_TOL
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n_pad,n_real", [
+    (1, 1408, 1374),   # DINOv2-giant: 1 + 4 registers + 37^2 tokens at 518 px, batch 1
+    (2, 384, 325),     # a ragged last key tile at 24 heads
+])
+def test_packed_attention_kernel_giant_matches_plain(b, n_pad, n_real):
+    """24 heads of 64 (width 1536): rows of 3 x 1536 bf16, the grid's y 24."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    qkv = torch.randn(b, n_pad, 3 * 1536, device="cuda", generator=g).bfloat16()
+    qkv[:, n_real:] = float("nan")  # pad rows must not reach real outputs
+    launches = port.KERNEL_LAUNCHES.count
+    got = port.packed_sdpa(qkv, 24, n_real).float()[:, :n_real]
+    torch.cuda.synchronize()
+    assert port.KERNEL_LAUNCHES.count == launches + 1
+    want = port.packed_sdpa_reference(qkv.float(), 24, n_real)[:, :n_real]
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= MAX_ABS_TOL
+    assert ((got - want).norm() / want.norm()).item() <= REL_TOL
+
+
 def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
