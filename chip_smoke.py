@@ -84,7 +84,15 @@ weights from a seed:
     the trajectory video of a scene of the route from the store; and the
     host code no route calls: the auction against scipy's Hungarian solver,
     Kabsch and Umeyama, the native RLE codec against the numpy one, and a
-    `fast` batch under `trace`.
+    `fast` batch under `trace`;
+  * the fine-tuning step (`parallel/train.py`): K1 and its autograd (the
+    kernel forward, the plain fp32 backward) at MoGe ViT-L's train shape
+    against the plain version; `MoGeModel(MoGeConfig.vitl())` trained at
+    518 px on a batch of 8 (a cold and 5 warm steps, then 2 through a
+    one-rank mesh under NCCL against the steps without one); its
+    gradients at depth 2 on the card against the CPU, with the attention
+    output cut from the graph as a planted fault; `parallel.dryrun`'s
+    `entry()` and `dryrun_multichip(1)`.
 
 Each phase prints one line; any failure exits non-zero. Without CUDA, or
 without the rest of the repository beside it, it exits non-zero and prints
@@ -4471,6 +4479,386 @@ def run_giant(tmp: str, scene_root: str) -> dict:
     return out
 
 
+# Phase 17, the fine-tuning step (`parallel/train.py`): MoGe ViT-L with the
+# checkpoint head trained at 518 px, K1 in its forward and K1's plain
+# backward; the multi-device code around it at one rank.
+
+TRAIN_BATCH = 8            # the production batch of the depth stage
+TRAIN_SIZE = 518           # 37^2 patches of 14 px: 1 + 1369 tokens, padded to 1408
+TRAIN_WARM_STEPS = 5
+TRAIN_INVALID = 0.1        # share of target pixels marked invalid
+TRAIN_SHAPE = dict(b=TRAIN_BATCH, n_pad=1408, n_real=1370, heads=16, d=64)
+# K1's d`qkv` on the card (kernel forward, plain fp32 backward rounded to
+# bf16) against the fp32 plain version's autograd gradient from the same
+# bf16 qkv and a bf16-exact cotangent: the result's bf16 rounding puts the
+# relative L2 near 1e-3; the largest error is held to a share of the
+# largest gradient. A gradient cut off at the attention output is 1.0.
+K1_GRAD_REL_TOL = 5e-3
+K1_GRAD_MAX_ABS_TOL = 1e-2
+# The step through make_mesh(1, 1) against the step without a mesh: the
+# same program plus collectives over one rank. The step repeats bit for bit
+# (the MoGe head's resize and edge pads have no atomics in their backward),
+# so anything above rounding is a fault of the mesh path.
+TRAIN_MESH_REL_TOL = 1e-6
+# The card's bf16 loss and gradients at depth 2 against the CPU's f32 ones
+# (relative L2 per tensor, key bias left out as above), from the same
+# weights with LayerScale gammas 1 and the same batch. Set from the CPU's
+# own bf16 against its f32 at this size: loss 9.8e-4, gradients 2.3e-2 at
+# the median tensor and 8.6e-2 at the worst (`backbone.pos_embed`, a sum
+# over every token). A gradient cut off at the attention output gives 1.0
+# on every qkv weight.
+TRAIN_CPU_LOSS_TOL = 1e-2
+TRAIN_CPU_REL_TOL = 0.2
+
+
+def train_batch(seed: int = 170, b: int = TRAIN_BATCH, size: int = TRAIN_SIZE):
+    """`b` synthetic scenes at `size` px (`synthetic_scene`): images in [0,
+    1], a target depth of a receding floor (2 to 6) with each rectangle at
+    a depth of its own (1 to 3), and about `TRAIN_INVALID` of the pixels
+    invalid. Numpy float32, float32, bool."""
+    import numpy as np
+
+    from labelany3d_tpu_torch.data.rle import rle_decode
+
+    rng = np.random.default_rng(seed)
+    images = np.empty((b, size, size, 3), np.float32)
+    depth = np.empty((b, size, size), np.float32)
+    rows = np.linspace(6.0, 2.0, size, dtype=np.float32)[:, None]
+    for i in range(b):
+        img, annos = synthetic_scene(rng, (size, size), int(rng.integers(2, 9)))
+        images[i] = img / np.float32(255.0)
+        depth[i] = rows
+        for a in annos:
+            depth[i][rle_decode(a["segmentation"])] = rng.uniform(1.0, 3.0)
+    valid = rng.uniform(size=(b, size, size)) >= TRAIN_INVALID
+    return images, depth, valid
+
+
+def train_config(depth: int | None = None, dtype=None):
+    """`MoGeConfig.vitl()`, optionally cut to `depth` blocks (every block
+    an output) and with every compute dtype set to `dtype`."""
+    import dataclasses
+
+    from labelany3d_tpu_torch.models.moge import MoGeConfig
+
+    cfg = MoGeConfig.vitl()
+    bb = cfg.backbone
+    if depth is not None:
+        bb = dataclasses.replace(bb, depth=depth, out_indices=tuple(range(depth)))
+    if dtype is not None:
+        bb = dataclasses.replace(bb, dtype=dtype)
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    return dataclasses.replace(cfg, backbone=bb)
+
+
+def check_attention_grad(shape: dict, seed: int, nan_pad_v: bool = False,
+                         timed: bool = False) -> dict:
+    """K1's autograd on the card at one shape: d`qkv` of the kernel forward
+    and plain backward against the gradient of the plain version under
+    autograd in fp32, for a bf16-exact cotangent on every row. With
+    `nan_pad_v` the pad rows of V hold NaN. With `timed`, the plain
+    backward's time and SDPA's forward and backward times (a yardstick,
+    with a key mask), and the backward's bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from labelany3d_tpu_torch.ops import attention as att
+
+    b, n_pad, n_real, heads, d = (shape[k] for k in ("b", "n_pad", "n_real", "heads", "d"))
+    w = heads * d
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    base = torch.randn(b, n_pad, 3 * w, device="cuda", generator=g).bfloat16()
+    if nan_pad_v:
+        base[:, n_real:, 2 * w:] = float("nan")
+    cot = torch.randn(b, n_pad, w, device="cuda", generator=g).bfloat16()
+    qkv = base.clone().requires_grad_()
+    out = att.packed_sdpa(qkv, heads, n_real)
+    out.backward(cot)
+    ref = base.float().requires_grad_()
+    att.packed_sdpa_reference(ref, heads, n_real).backward(cot.float())
+    got, want = qkv.grad.float(), ref.grad
+    torch.cuda.synchronize()
+    res = {"has_grad_fn": out.grad_fn is not None,
+           "finite": bool(torch.isfinite(got).all()),
+           "max_abs_err": float((got - want).abs().max()),
+           "max_abs_grad": float(want.abs().max()),
+           "rel_err": float((got - want).norm() / want.norm())}
+    res["ok"] = (res["has_grad_fn"] and res["finite"] and res["rel_err"] <= K1_GRAD_REL_TOL
+                 and res["max_abs_err"] <= K1_GRAD_MAX_ABS_TOL * res["max_abs_grad"])
+    del qkv, ref, out, got, want
+    if timed:
+        res["backward_ms"] = time_cuda(
+            lambda: att.packed_sdpa_backward(base, cot, heads, n_real), iters=5, warmup=1)
+        q, k, v = (base[..., i * w:(i + 1) * w].view(b, n_pad, heads, d).transpose(1, 2)
+                   .detach().requires_grad_() for i in range(3))
+        mask = (torch.arange(n_pad, device="cuda") < n_real).view(1, 1, 1, n_pad)
+        sdpa = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        go = cot.view(b, n_pad, heads, d).transpose(1, 2)
+        res["library_backward_ms"] = time_cuda(
+            lambda: torch.autograd.grad(sdpa, (q, k, v), go, retain_graph=True))
+        # The backward's least time: qkv and the cotangent read, d`qkv`
+        # written (bf16); QK^T recomputed, then dV, dP, dQ and dK, five
+        # products over the real keys on the bf16 tensor cores.
+        res["backward_bound_ms"], res["backward_bound_by"] = bound(
+            2 * (3 * b * n_pad * w + b * n_pad * w + 3 * b * n_pad * w),
+            10 * b * heads * n_pad * n_real * d)
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_train_step() -> dict:
+    """Phase 17(b): `MoGeModel(MoGeConfig.vitl())` at 518 px built on the
+    card (Flax's initialisers, seed 171, f32 master weights, bf16 compute),
+    `init_train_state` and `make_train_step` without a mesh on one batch of
+    8 (`train_batch`): one cold step, then `TRAIN_WARM_STEPS` warm ones,
+    each timed by CUDA events; K1 launches, plain calls and backward calls
+    counted over those steps; the peak; one more step traced for the idle
+    share. Then the same start through `make_mesh(1, 1)` under NCCL at
+    world size 1 (`launch.process_group`) for 2 steps, against the first 2
+    steps without a mesh."""
+    import numpy as np
+    import torch
+
+    from labelany3d_tpu_torch.models.moge import MoGeModel
+    from labelany3d_tpu_torch.ops import attention as att
+    from labelany3d_tpu_torch.parallel.launch import process_group
+    from labelany3d_tpu_torch.parallel.mesh import make_mesh
+    from labelany3d_tpu_torch.parallel.train import (
+        init_train_state,
+        make_train_step,
+        prepare_batch,
+    )
+
+    cfg = train_config()
+    hw = (TRAIN_SIZE, TRAIN_SIZE)
+    batch = [torch.as_tensor(a, device="cuda") for a in train_batch()]
+    with torch.device("cuda"):
+        model = MoGeModel(cfg, hw)
+    state, opt = init_train_state(model, torch.Generator(device="cuda").manual_seed(171))
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    res = {"parameters": sum(p.numel() for p in model.parameters()),
+           "param_dtypes": sorted({str(p.dtype) for p in model.parameters()})}
+    step = make_train_step(model, opt)
+    counts = (att.KERNEL_LAUNCHES, att.PLAIN_CALLS, att.BACKWARD_CALLS)
+    for c in counts:
+        c.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, loss = step(state, *batch)
+    losses = [float(loss)]
+    res["cold_s"] = time.perf_counter() - t0
+    step_ms = []
+    after2 = None
+    for i in range(TRAIN_WARM_STEPS):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, loss = step(state, *batch)
+        e1.record()
+        e1.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+        losses.append(float(loss))
+        if i == 0:
+            after2 = {k: p.detach().clone() for k, p in model.named_parameters()}
+    steps = 1 + TRAIN_WARM_STEPS
+    res.update(losses=losses, steps=steps, step_ms=step_ms,
+               warm_ms=float(np.mean(step_ms)), max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               k1_launches=counts[0].count, k1_plain_calls=counts[1].count,
+               k1_backward_calls=counts[2].count)
+    res["images_per_s"] = TRAIN_BATCH / (res["warm_ms"] / 1e3)
+    prof = profile_pass(lambda: step(state, *batch), host=False)
+    res["profile"] = {k: prof[k] for k in ("wall_ms", "device_ms", "k1_ms", "k1_events",
+                                           "top_device")}
+    res["idle_share"] = (1.0 - prof["device_ms"] / res["warm_ms"] if prof["device_ms"] > 0
+                         else "not measured")
+    depth = cfg.backbone.depth
+    res["ok"] = (bool(np.isfinite(losses).all()) and losses[-1] < losses[0]
+                 and res["k1_launches"] == depth * steps and res["k1_plain_calls"] == 0
+                 and res["k1_backward_calls"] == depth * steps and res["param_dtypes"] ==
+                 ["torch.float32"])
+    del state, opt, step, model
+    torch.cuda.empty_cache()
+
+    # The same start and batch through make_mesh(1, 1) under NCCL.
+    with torch.device("cuda"):
+        model = MoGeModel(cfg, hw)
+    model.load_state_dict(start)
+    del start
+    with process_group(device="cuda"):
+        mesh = make_mesh(1, 1, device="cuda")
+        state, opt = init_train_state(model, mesh=mesh)
+        local = prepare_batch(mesh, *batch)
+        step = make_train_step(model, opt)
+        mesh_losses = []
+        for _ in range(2):
+            state, loss = step(state, *local)
+            mesh_losses.append(float(loss))
+    got = dict(model.named_parameters())
+    num = sum(float((got[k].detach() - after2[k]).norm()) ** 2 for k in got) ** 0.5
+    res["mesh"] = {"losses": mesh_losses,
+                   "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(mesh_losses, losses[:2])),
+                   "param_rel": num / sum(float(p.norm()) ** 2 for p in after2.values()) ** 0.5}
+    res["mesh"]["ok"] = (res["mesh"]["loss_rel"] <= TRAIN_MESH_REL_TOL
+                         and res["mesh"]["param_rel"] <= TRAIN_MESH_REL_TOL)
+    del model, state, opt, step, after2, got
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_grads(model, batch) -> tuple[float, dict]:
+    """One forward and backward of the scale-invariant loss: the loss and
+    each parameter's gradient (float32, on the host; zeros where none)."""
+    import torch
+
+    from labelany3d_tpu_torch.parallel.train import depth_loss
+    from labelany3d_tpu_torch.utils.precision import full_f32
+
+    model.zero_grad(set_to_none=True)
+    with torch.enable_grad(), full_f32():
+        loss = depth_loss(model(batch[0])["points"][..., 2], batch[1], batch[2])
+        loss.backward()
+    return float(loss.detach()), {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+                         .float().cpu() for k, p in model.named_parameters()}
+
+
+def grad_rel(got: dict, want: dict) -> dict:
+    """Relative L2 of each gradient tensor, the key bias left out of each
+    `qkv.bias` (its gradient is zero in exact arithmetic)."""
+    import torch
+
+    out = {}
+    for k, w in want.items():
+        g = got[k]
+        if k.endswith("attn.qkv.bias"):
+            n = w.shape[0] // 3
+            keep = torch.ones_like(w, dtype=torch.bool)
+            keep[n:2 * n] = False
+            g, w = g[keep], w[keep]
+        out[k] = float((g - w).norm() / max(float(w.norm()), 1e-30))
+    return out
+
+
+def train_card_vs_cpu(seed: int = 172) -> dict:
+    """Phase 17(c): MoGe ViT-L at full width cut to depth 2 (both blocks
+    feed the head), 518 px, batch 1, the same weights (Flax's initialisers
+    from a seed, LayerScale gammas 1 so the attention branch weighs as much
+    as the residual) and the same batch: the card's bf16 compute (K1
+    forward, plain backward) against the CPU's f32, the loss and every
+    parameter's gradient. Then a fault planted on the card: the attention
+    output cut from the graph (K1's kernel called without its autograd
+    function, as the port did before its backward existed)."""
+    import torch
+
+    from labelany3d_tpu_torch.models import vit as vit_mod
+    from labelany3d_tpu_torch.models.moge import MoGeModel
+    from labelany3d_tpu_torch.models.weights import init_params_
+    from labelany3d_tpu_torch.ops import attention as att
+
+    hw = (TRAIN_SIZE, TRAIN_SIZE)
+    cpu = MoGeModel(train_config(depth=2, dtype=torch.float32), hw)
+    init_params_(cpu, torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if name.endswith(".gamma"):
+                p.fill_(1.0)
+    with torch.device("cuda"):
+        card = MoGeModel(train_config(depth=2), hw)
+    card.load_state_dict(cpu.state_dict())
+    batch = train_batch(seed + 1, b=1)
+    loss_cpu, g_cpu = train_grads(cpu, [torch.as_tensor(a) for a in batch])
+    on_card = [torch.as_tensor(a, device="cuda") for a in batch]
+    loss_card, g_card = train_grads(card, on_card)
+    rel = grad_rel(g_card, g_cpu)
+    worst = max(rel, key=rel.get)
+    res = {"loss_cpu": loss_cpu, "loss_card": loss_card,
+           "loss_rel": abs(loss_card - loss_cpu) / abs(loss_cpu),
+           "grad_rel_max": rel[worst], "grad_rel_worst": worst,
+           "grad_rel_median": sorted(rel.values())[len(rel) // 2], "tensors": len(rel)}
+    real = vit_mod.packed_sdpa
+    vit_mod.packed_sdpa = att.packed_sdpa_kernel
+    try:
+        _, g_fault = train_grads(card, on_card)
+    finally:
+        vit_mod.packed_sdpa = real
+    fault = grad_rel(g_fault, g_cpu)
+    qkv = [k for k in fault if k.endswith("attn.qkv.weight")]
+    res["fault_detached_qkv_weight_rel"] = [fault[k] for k in qkv]
+    res["ok"] = (res["loss_rel"] <= TRAIN_CPU_LOSS_TOL and res["grad_rel_max"] <= TRAIN_CPU_REL_TOL
+                 and len(qkv) == 2 and all(fault[k] > TRAIN_CPU_REL_TOL for k in qkv))
+    del card, cpu
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_multichip() -> dict:
+    """Phase 17(d): `entry()` on the card (the full-width forward at 518 px),
+    and `dryrun_multichip(1)`: one rank spawned under NCCL, the tiny train
+    step twice, the production shard shapes and data splits. (Sequence
+    parallelism's ring mode needs two ranks, which NCCL does not put on one
+    device: it is held on the CPU only, tests/test_torch_sp_attention.py.)"""
+    import torch
+
+    from labelany3d_tpu_torch.parallel.dryrun import dryrun_multichip, entry
+
+    fn, args = entry(device="cuda")
+    t0 = time.perf_counter()
+    points = fn(*args)
+    torch.cuda.synchronize()
+    res = {"entry_s": time.perf_counter() - t0, "entry_shape": list(points.shape),
+           "entry_finite": bool(torch.isfinite(points).all())}
+    del fn, args, points
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (rank,) = dryrun_multichip(1, device="cuda")
+    res["dryrun_s"] = time.perf_counter() - t0
+    res["dryrun"] = {k: rank[k] for k in ("coordinate", "losses", "step", "production_shards",
+                                          "production_split", "labeling_rows", "forbidden")}
+    res["ok"] = (res["entry_shape"] == [1, TRAIN_SIZE, TRAIN_SIZE, 3] and res["entry_finite"]
+                 and rank["step"] == 2 and not rank["forbidden"])
+    return res
+
+
+def run_train() -> dict:
+    """Phase 17: (a) K1's autograd at the train shape, (b) the full-width
+    train step, (c) the card against the CPU with a planted fault, (d) the
+    entry forward and the dry run; prints each part's line."""
+    out = {"k1": check_attention(TRAIN_SHAPE, seed=170)}
+    _say("train:K1", **out["k1"], max_abs_tol=K1_MAX_ABS_TOL, rel_tol=K1_REL_TOL)
+    out["grad"] = check_attention_grad(TRAIN_SHAPE, seed=173, timed=True)
+    out["grad_nan_v"] = check_attention_grad(TRAIN_SHAPE, seed=174, nan_pad_v=True)
+    for name in ("grad", "grad_nan_v"):
+        _say(f"train:K1_{name}", **out[name], rel_tol=K1_GRAD_REL_TOL,
+             max_abs_tol_of_max_grad=K1_GRAD_MAX_ABS_TOL)
+    k1 = out["k1"]
+    if (not k1["finite"] or k1["max_abs_err"] > K1_MAX_ABS_TOL or k1["rel_err"] > K1_REL_TOL
+            or not out["grad"]["ok"] or not out["grad_nan_v"]["ok"]):
+        raise SystemExit("train: K1's forward or gradient disagrees with its plain version at "
+                         "the train shape (see train:K1*)")
+    out["step"] = s = run_train_step()
+    _say("train:step", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                          for k, v in s.items() if k != "mesh"})
+    _say("train:mesh", **{k: json.dumps(v) if isinstance(v, list) else v
+                          for k, v in s["mesh"].items()}, rel_tol=TRAIN_MESH_REL_TOL)
+    if not s["ok"] or not s["mesh"]["ok"]:
+        raise SystemExit("train: the step's loss, launches, plain or backward calls, or the "
+                         "mesh run's agreement are not as required (see train:step, train:mesh)")
+    out["check"] = c = train_card_vs_cpu()
+    _say("train:card_vs_cpu", **{k: json.dumps(v) if isinstance(v, list) else v
+                                 for k, v in c.items()}, loss_tol=TRAIN_CPU_LOSS_TOL,
+         rel_tol=TRAIN_CPU_REL_TOL)
+    if not c["ok"]:
+        raise SystemExit("train: the card's gradients disagree with the CPU's, or the planted "
+                         "fault stays under the limit (see train:card_vs_cpu)")
+    out["multichip"] = m = run_multichip()
+    _say("train:multichip", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                               for k, v in m.items()},
+         sp_ring="held on the CPU only (two ranks; NCCL puts one rank on a device)")
+    if not m["ok"]:
+        raise SystemExit("train: the entry forward or the dry run is not as required "
+                         "(see train:multichip)")
+    return out
+
+
 def module_version(name: str) -> str:
     """An optional module's version, or "missing" (the overlay needs OpenCV)."""
     try:
@@ -4762,6 +5150,12 @@ def main() -> int:
         if not croute["placed_scenes"]:
             raise SystemExit("ckpt route: no scene holds a placed mesh for the trajectory")
         giant = run_giant(tmp, croute["placed_scenes"][0])
+        torch.cuda.empty_cache()
+
+        # 17. The fine-tuning step: K1's autograd at the train shape, MoGe
+        # ViT-L trained at 518 px (and through a one-rank mesh), its
+        # gradients on the card against the CPU, the dry run.
+        trn = run_train()
 
     def row(name, source, replaces, launches, r, max_abs_err, **extra):
         return {"name": name, "route": "cuda", "source": f"labelany3d_tpu_torch/csrc/{source}",
@@ -4793,6 +5187,14 @@ def main() -> int:
             launches_wild_cli=wild["cli"]["k1_launches"],
             launches_ckpt_route=croute["launches"]["k1"],
             launches_giant_forward=giant["store"]["launches"]["k1"],
+            launches_train_step=trn["step"]["k1_launches"],
+            backward_calls_train_step=trn["step"]["k1_backward_calls"],
+            train={"shape": "B=8 Npad=1408 n_real=1370 H=16 d=64 (MoGe ViT-L at 518 px)",
+                   **{k: trn["k1"][k] for k in timed if k in trn["k1"]},
+                   "max_abs_err": trn["k1"]["max_abs_err"],
+                   "grad_rel_err": trn["grad"]["rel_err"],
+                   **{k: trn["grad"][k] for k in ("backward_ms", "library_backward_ms",
+                                                  "backward_bound_ms", "backward_bound_by")}},
             shape="MoGe B=8 Npad=1408 n_real=1297 H=16 d=64", design=design,
             ratio_to_library=k1["moge"]["ratio_to_library"],
             share_of_bound=k1["moge"]["share_of_bound"], sass=sass["k1"],

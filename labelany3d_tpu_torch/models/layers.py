@@ -56,6 +56,18 @@ class Conv(nn.Conv2d):
                             self.stride, self.padding, self.dilation, self.groups)
 
 
+def replicate_pad(x: torch.Tensor, p: int) -> torch.Tensor:
+    """NCHW edge pad of `p` pixels on each side (torch's 'replicate' mode),
+    from concatenated edge slices: their backward sums in a fixed order,
+    where `F.pad`'s replicate backward adds with atomics on CUDA and so
+    differs from run to run (a training step would not repeat)."""
+    h, w = x.shape[-2:]
+    x = torch.cat([x[..., :1, :].expand(*x.shape[:-2], p, w), x,
+                   x[..., -1:, :].expand(*x.shape[:-2], p, w)], dim=-2)
+    return torch.cat([x[..., :1].expand(*x.shape[:-1], p), x,
+                      x[..., -1:].expand(*x.shape[:-1], p)], dim=-1)
+
+
 class Conv3Replicate(Conv):
     """3x3 convolution after a one-pixel edge pad (torch
     `padding_mode='replicate'`; the JAX package's `_conv3_replicate`)."""
@@ -64,7 +76,7 @@ class Conv3Replicate(Conv):
         super().__init__(in_ch, out_ch, 3, dtype, padding=0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(F.pad(x, (1, 1, 1, 1), mode="replicate"))
+        return super().forward(replicate_pad(x, 1))
 
 
 class ConvTranspose(nn.ConvTranspose2d):

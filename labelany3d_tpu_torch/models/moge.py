@@ -27,6 +27,7 @@ from labelany3d_tpu_torch.models.layers import (
     ConvTranspose,
     Dense,
     GroupNorm32,
+    replicate_pad,
     resize,
 )
 from labelany3d_tpu_torch.models.vit import ViT, ViTConfig
@@ -157,11 +158,36 @@ class ResidualConvBlock(nn.Module):
         return self.conv2(F.relu(self.norm2(h))) + skip
 
 
+def _resize_matrix(in_size: int, out_size: int, pad: int) -> np.ndarray:
+    """(out_size + 2 * pad, in_size) float32: each row the two tap weights
+    of one output row of a bilinear resize (torch `align_corners=False`,
+    no antialias, as the released head), the `pad` edge rows on each side
+    repeating the first and last row's taps (the JAX package's
+    `_resize_matrix`)."""
+    pos = (np.arange(out_size, dtype=np.float64) + 0.5) * (in_size / out_size) - 0.5
+    base = np.floor(pos)
+    w1 = (pos - base).astype(np.float32)
+    i0 = np.clip(base, 0, in_size - 1).astype(np.int64)
+    i1 = np.clip(base + 1, 0, in_size - 1).astype(np.int64)
+    if pad:
+        i0, i1, w1 = (np.concatenate([np.repeat(a[:1], pad), a, np.repeat(a[-1:], pad)])
+                      for a in (i0, i1, w1))
+    g = np.zeros((len(i0), in_size), np.float32)
+    rows = np.arange(len(i0))
+    np.add.at(g, (rows, i0), 1 - w1)
+    np.add.at(g, (rows, i1), w1)
+    return g
+
+
 def _resize_bilinear_pad(x: torch.Tensor, out_hw: tuple[int, int], pad: int = 1) -> torch.Tensor:
-    """NCHW bilinear resize (torch `align_corners=False`, no antialias, as
-    the released head) followed by an edge pad of `pad` pixels."""
-    x = F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False)
-    return F.pad(x, (pad,) * 4, mode="replicate")
+    """NCHW bilinear resize with an edge pad of `pad` pixels fused in, as
+    two products with the tap matrices (`_resize_matrix`), each rounded to
+    `x.dtype`, as the JAX package computes it. Unlike `F.interpolate`,
+    whose backward adds with atomics on CUDA, the products' backward is the
+    same from run to run, so a training step repeats."""
+    gh, gw = (torch.as_tensor(_resize_matrix(n, o, pad), dtype=x.dtype, device=x.device)
+              for n, o in ((x.shape[2], out_hw[0]), (x.shape[3], out_hw[1])))
+    return torch.matmul(torch.matmul(gh, x), gw.t())
 
 
 class MoGeCheckpointHead(nn.Module):
@@ -225,7 +251,7 @@ class MoGeCheckpointHead(nn.Module):
                 h = getattr(self, f"out{j}_res{r}")(h)
             h = F.relu(h)
             if k > 1:
-                h = F.pad(h, (k // 2,) * 4, mode="replicate")
+                h = replicate_pad(h, k // 2)
             outs.append(getattr(self, f"out{j}_conv_out")(h))
         return torch.cat(outs, dim=1).permute(0, 2, 3, 1)  # NHWC, float32
 

@@ -15,6 +15,13 @@ launches its hand-written Hopper kernel; on a CPU tensor it runs its plain
 PyTorch version. There is no other fallback: a CUDA tensor a kernel does
 not take raises. Masked (pad) V rows never reach an output, whatever they
 hold.
+
+`packed_sdpa` is differentiable on every device: its backward
+(`packed_sdpa_backward`) recomputes the attention in fp32 from the saved
+qkv, as the JAX package's `_packed_bwd_rule` takes the VJP of its XLA
+reference. `flash_sdpa` is forward only on the card (the JAX package never
+differentiates it): called there with grad enabled on an input that
+requires grad, it raises rather than return an output cut from the graph.
 """
 
 from __future__ import annotations
@@ -35,9 +42,12 @@ class LaunchCounter:
 
 
 # Launches of the CUDA kernel, and calls of the plain version; a run reads
-# them to show which path the model went through.
+# them to show which path the model went through. K1's backward is plain
+# PyTorch on every device and has a count of its own, so that PLAIN_CALLS
+# still counts only forwards that left the kernel.
 KERNEL_LAUNCHES = LaunchCounter()
 PLAIN_CALLS = LaunchCounter()
+BACKWARD_CALLS = LaunchCounter()
 
 _SOURCE = "packed_attention"
 # The head dims the kernels are built for (`attention_sm90.cuh`'s Tiles<D>):
@@ -121,14 +131,81 @@ def packed_sdpa_kernel(qkv: torch.Tensor, num_heads: int, n_real: int) -> torch.
     return out
 
 
+def packed_sdpa_backward(qkv: torch.Tensor, grad_out: torch.Tensor, num_heads: int,
+                         n_real: int) -> torch.Tensor:
+    """d`qkv` of `packed_sdpa` for the cotangent `grad_out` (B, Npad, W):
+    the attention recomputed in fp32 from `qkv`, with the forward's masking
+    (keys >= n_real masked, their K and V rows zeroed), and the standard
+    softmax-attention VJP. Returns `qkv.dtype`.
+
+    A pad query row (>= n_real) whose cotangent is zero contributes nothing
+    to any gradient, so it is dropped before the products: NaN pad rows of
+    `qkv` then reach no gradient, as they reach no real output forward."""
+    BACKWARD_CALLS.count += 1
+    b, n_pad, w3 = qkv.shape
+    w = w3 // 3
+    d = w // num_heads
+    scale = 1.0 / float(d) ** 0.5
+    x = qkv.float()
+
+    def heads(t):  # (B, N, W) -> (B, H, N, d)
+        return t.reshape(b, n_pad, num_heads, d).transpose(1, 2)
+
+    q, k, v = heads(x[..., :w]), heads(x[..., w:2 * w]), heads(x[..., 2 * w:])
+    g = heads(grad_out.float())
+    if n_real < n_pad:
+        pad = torch.arange(n_pad, device=qkv.device) >= n_real
+        live = ~pad[:, None] | (g != 0).any(-1, keepdim=True)      # (B, H, N, 1)
+        q = torch.where(live, q, torch.zeros((), device=q.device))
+        g = torch.where(live, g, torch.zeros((), device=g.device))
+        k = k.masked_fill(pad[:, None], 0.0)
+        v = v.masked_fill(pad[:, None], 0.0)
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if n_real < n_pad:
+        s[..., n_real:] = float("-inf")
+    p = torch.softmax(s, dim=-1)
+    del s
+    out = torch.matmul(p, v)
+    dv = torch.matmul(p.transpose(-1, -2), g)
+    dp = torch.matmul(g, v.transpose(-1, -2))
+    # dS = P * (dP - rowsum(dO * O)), the softmax's VJP.
+    ds = p.mul_(dp.sub_((g * out).sum(-1, keepdim=True)))
+    del dp
+    dq = torch.matmul(ds, k) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+
+    def merge(t):  # (B, H, N, d) -> (B, N, W)
+        return t.transpose(1, 2).reshape(b, n_pad, w)
+
+    return torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1).to(qkv.dtype)
+
+
+class _PackedSdpa(torch.autograd.Function):
+    """K1 forward (the kernel on CUDA, the plain version on the CPU) with
+    `packed_sdpa_backward` as its backward; saves `qkv`, the residual the
+    JAX package's `_packed_fwd_rule` keeps."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, n_real):
+        ctx.save_for_backward(qkv)
+        ctx.num_heads, ctx.n_real = num_heads, n_real
+        if qkv.device.type == "cpu":
+            return packed_sdpa_reference(qkv, num_heads, n_real)
+        return packed_sdpa_kernel(qkv, num_heads, n_real)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (qkv,) = ctx.saved_tensors
+        return packed_sdpa_backward(qkv, grad_out, ctx.num_heads, ctx.n_real), None, None
+
+
 def packed_sdpa(qkv: torch.Tensor, num_heads: int, n_real: int) -> torch.Tensor:
     """(B, Npad, 3W) packed qkv -> (B, Npad, W) attention output.
 
     CPU tensors take the plain version; CUDA tensors the kernel (or raise).
+    Differentiable on both (`packed_sdpa_backward`).
     """
-    if qkv.device.type == "cpu":
-        return packed_sdpa_reference(qkv, num_heads, n_real)
-    return packed_sdpa_kernel(qkv, num_heads, n_real)
+    return _PackedSdpa.apply(qkv, num_heads, n_real)
 
 
 # K2: launches of csrc/flash_attention.cu and calls of its plain version.
@@ -224,9 +301,14 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     `segment_ids` (B, S) int, 0 = real token: masks keys of a
     self-attention. CPU tensors take the plain version; CUDA tensors the
-    kernel (or raise)."""
+    kernel (or raise). The kernel has no backward: on CUDA tensors with grad
+    enabled and an input that requires grad, this raises."""
     if q.device.type == "cpu":
         return flash_sdpa_reference(q, k, v, segment_ids)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_sdpa has no backward on the card (K2's backward is not ported); call "
+            "it under torch.no_grad() or torch.inference_mode(), or on CPU tensors")
     return flash_sdpa_kernel(q, k, v, segment_ids)
 
 

@@ -13,6 +13,7 @@ factories give the shipping defaults, the SD-class backends (`invsr`,
 
 from __future__ import annotations
 
+import copy
 from typing import Protocol
 
 import numpy as np
@@ -66,6 +67,13 @@ class TorchDepthBackend:
     A `DepthPro35Config` selects the checkpoint-faithful 35-patch DepthPro,
     which runs at its fixed `img_size` (1536): the batch is resized to it,
     the focal scaled with the width, and the depth resized back.
+
+    Data parallelism, as the JAX backend's `use_mesh`: with more than one
+    visible CUDA device (`use_mesh` None or True), or an explicit `devices`
+    list (a CPU test passes ("cpu", "cpu")), the two models are replicated
+    on each device and a batch the device count divides is split by rows,
+    each replica running its rows; the outputs are gathered on the first
+    device. Otherwise one device runs the whole batch, as before.
     """
 
     def __init__(
@@ -77,8 +85,21 @@ class TorchDepthBackend:
         seed: int = 0,
         pin_hw: tuple | None = None,
         device: str | torch.device | None = None,
+        use_mesh: bool | None = None,
+        devices=None,
     ):
-        self.device = resolve_device(device)
+        if devices is not None:
+            self.devices = [resolve_device(d) for d in devices]
+            self.device = self.devices[0]
+        else:
+            self.device = resolve_device(device)
+            n = torch.cuda.device_count() if self.device.type == "cuda" else 1
+            self.devices = [self.device]
+            if use_mesh is not False and n > 1:
+                first = self.device.index if self.device.index is not None \
+                    else torch.cuda.current_device()
+                self.devices += [torch.device("cuda", i) for i in range(n) if i != first]
+        self._replicas: list[tuple[torch.nn.Module, torch.nn.Module]] = []
         self.moge_cfg = moge_cfg or MoGeConfig()
         self.dp_cfg = depth_pro_cfg or DepthProConfig()
         self._dp35 = isinstance(self.dp_cfg, DepthPro35Config)
@@ -113,24 +134,36 @@ class TorchDepthBackend:
             dp = DepthPro35(self.dp_cfg) if self._dp35 else DepthProModel(self.dp_cfg, hw)
             self.depth_pro = self._build(dp, self._params[1], self._seed + 1)
         self._params = (None, None)  # the models hold them now
+        self._replicas = [(copy.deepcopy(self.moge).to(d), copy.deepcopy(self.depth_pro).to(d))
+                          for d in self.devices[1:]]
 
     @torch.inference_mode()
     def infer(self, images) -> dict:
         b, h, w, _ = images.shape
         self._ensure_models(h, w)
-        x = torch.as_tensor(np.asarray(images)).to(self.device)
+        x = torch.as_tensor(np.asarray(images))
+        n = len(self.devices)
+        if n == 1 or b % n:
+            return self._infer_rows(self.moge, self.depth_pro, x.to(self.device))
+        models = [(self.moge, self.depth_pro), *self._replicas]
+        parts = [self._infer_rows(*mods, rows.to(dev))
+                 for mods, rows, dev in zip(models, x.chunk(n), self.devices)]
+        return {k: torch.cat([p[k].to(self.device) for p in parts]) for k in parts[0]}
+
+    def _infer_rows(self, moge, depth_pro, x: torch.Tensor) -> dict:
+        _, h, w, _ = x.shape
         # uint8 batches normalise on the device: 4x fewer bytes to copy.
         x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
-        m = moge_infer(self.moge, x, apply_mask=True)
+        m = moge_infer(moge, x, apply_mask=True)
         K_pix = pixel_intrinsics_from_normalized(m["intrinsics"], w, h)
         if self._dp35:
             s = self.dp_cfg.img_size
             x_dp = resize(x.permute(0, 3, 1, 2), (s, s)).permute(0, 2, 3, 1)
             # The focal scales with the resize of the width axis.
-            d = depth_pro35_infer(self.depth_pro, x_dp, f_px=K_pix[:, 0, 0] * (s / w))
+            d = depth_pro35_infer(depth_pro, x_dp, f_px=K_pix[:, 0, 0] * (s / w))
             d = {"depth": resize(d["depth"][:, None], (h, w))[:, 0]}
         else:
-            d = depth_pro_infer(self.depth_pro, x, f_px=K_pix[:, 0, 0])
+            d = depth_pro_infer(depth_pro, x, f_px=K_pix[:, 0, 0])
         return {
             "relative_depth": m["depth"],
             "metric_depth": d["depth"],

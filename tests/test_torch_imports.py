@@ -63,6 +63,13 @@ def test_import_leaves_jax_out():
         "import labelany3d_tpu_torch.utils.trajectory\n"
         "import labelany3d_tpu_torch.utils.profiling\n"
         "import labelany3d_tpu_torch.native\n"
+        "import labelany3d_tpu_torch.parallel\n"
+        "import labelany3d_tpu_torch.parallel.mesh\n"
+        "import labelany3d_tpu_torch.parallel.sharding\n"
+        "import labelany3d_tpu_torch.parallel.sp\n"
+        "import labelany3d_tpu_torch.parallel.train\n"
+        "import labelany3d_tpu_torch.parallel.launch\n"
+        "import labelany3d_tpu_torch.parallel.dryrun\n"
         "from labelany3d_tpu_torch.data import rle\n"
         "rle.rle_decode(rle.rle_encode(__import__('numpy').eye(4, dtype=bool)))\n"
         "assert rle.PATHS['native'] + rle.PATHS['numpy'] == 4\n"
@@ -120,6 +127,9 @@ def test_source_scan_finds_no_forbidden_import():
     assert {"trajectory.py", "profiling.py", "logging.py"} <= \
         {f.name for f in files if f.parent.name == "utils"}
     assert (PKG / "native" / "__init__.py") in files and (PKG / "native" / "rle.cpp").exists()
+    # The multi-device modules and the fine-tuning step.
+    assert {"__init__.py", "mesh.py", "sharding.py", "sp.py", "train.py", "launch.py",
+            "dryrun.py"} <= {f.name for f in files if f.parent.name == "parallel"}
     bad = [(f.name, m) for f in files for m in _imports(f) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 
@@ -285,3 +295,19 @@ def test_host_leftovers_default_to_cuda(monkeypatch, tmp_path):
              Mesh(pts[:3], np.array([[0, 1, 2]], np.int32)))
     with pytest.raises(RuntimeError, match="CUDA"):
         render_trajectory_video(sd, str(tmp_path / "v.mp4"), frames_per_segment=1)
+
+
+def test_parallel_entry_points_default_to_cuda(monkeypatch):
+    """The dry run, the launcher and the mesh run on CUDA (NCCL) unless
+    the caller passes "cpu"; nothing falls back."""
+    from labelany3d_tpu_torch.parallel.dryrun import dryrun_multichip, entry
+    from labelany3d_tpu_torch.parallel.launch import process_group, run_ranks
+    from labelany3d_tpu_torch.parallel.mesh import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: entry(), lambda: dryrun_multichip(1), lambda: make_mesh(1, 1),
+                 lambda: run_ranks(print, 1), lambda: process_group().__enter__()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    with pytest.raises(RuntimeError, match="process group"):
+        make_mesh(1, 1, device="cpu")

@@ -7,7 +7,8 @@ machine without it; `tests/conftest.py` imports JAX, hence:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest -q
 
 Attention tolerances, against an fp32 plain version on the same bf16 inputs: 5e-3
-absolute and 5e-3 relative L2 (||out - ref|| / ||ref||). The output is
+absolute and 5e-3 relative L2 (||out - ref|| / ||ref||); K1's gradient
+5e-3 relative L2 and 1e-2 of the largest gradient absolute. The output is
 rounded to bf16 (relative 2^-9) and so is P before the PV product; a wrong
 key tile (the last partial tile dropped, or its pad keys unmasked) moves
 the output by a few percent of its scale.
@@ -74,6 +75,58 @@ def test_packed_attention_kernel_giant_matches_plain(b, n_pad, n_real):
 def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+
+
+# K1's d`qkv` on the card (kernel forward, plain fp32 backward, rounded to
+# bf16) against the fp32 plain version's autograd gradient from the same
+# bf16 qkv and a bf16-exact cotangent: the bf16 rounding of the result puts
+# the relative L2 error near 1e-3; a gradient cut off at the attention
+# output would be 1.0.
+GRAD_REL_TOL = 5e-3
+GRAD_MAX_ABS_TOL = 1e-2   # times the largest |gradient|
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n_pad,n_real", [
+    (2, 384, 325),
+    (2, 1408, 1370),   # MoGe ViT-L's 1 + 37^2 tokens at 518 px (the train step)
+])
+def test_packed_attention_is_differentiable_on_the_card(b, n_pad, n_real):
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    base = torch.randn(b, n_pad, 3 * 1024, device="cuda", generator=g).bfloat16()
+    cot = torch.randn(b, n_pad, 1024, device="cuda", generator=g).bfloat16().float()
+    cot[:, n_real:] = 0.0  # pad rows feed nothing downstream, as in the ViT
+    qkv = base.clone().requires_grad_()
+    launches, backward = port.KERNEL_LAUNCHES.count, port.BACKWARD_CALLS.count
+    out = port.packed_sdpa(qkv, 16, n_real)
+    assert out.grad_fn is not None and port.KERNEL_LAUNCHES.count == launches + 1
+    (out.float() * cot).sum().backward()
+    assert port.BACKWARD_CALLS.count == backward + 1
+    ref = base.float().requires_grad_()
+    (port.packed_sdpa_reference(ref, 16, n_real) * cot).sum().backward()
+    got, want = qkv.grad.float(), ref.grad
+    assert ((got - want).norm() / want.norm()).item() <= GRAD_REL_TOL
+    assert (got - want).abs().max().item() <= GRAD_MAX_ABS_TOL * want.abs().max().item()
+    nan = base.clone()
+    nan[:, n_real:] = float("nan")
+    nan.requires_grad_()
+    (port.packed_sdpa(nan, 16, n_real).float() * cot).sum().backward()
+    assert torch.isfinite(nan.grad).all()
+    assert torch.equal(nan.grad[:, :n_real], qkv.grad[:, :n_real])
+
+
+@pytest.mark.cuda
+def test_flash_attention_raises_under_grad_on_the_card():
+    """K2 has no backward: with grad enabled and an input that requires
+    grad it raises, rather than return an output cut from the graph."""
+    _cuda_or_skip()
+    q, k, v = (torch.randn(1, 128, 12, 64, device="cuda").bfloat16() for _ in range(3))
+    out = port.flash_sdpa(q, k, v)  # nothing requires grad
+    with torch.no_grad():
+        assert torch.equal(port.flash_sdpa(q, k, v.requires_grad_()), out)
+    with pytest.raises(RuntimeError, match="no backward"):
+        port.flash_sdpa(q, k, v)
 
 
 @pytest.mark.cuda
