@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py
 
-builds the port's four CUDA kernels from `labelany3d_tpu_torch/csrc/` with
-nvcc (one process per source, all at once), checks that the two attention
-kernels and the reciprocal-NN argmax compiled to wgmma (HGMMA) and TMA loads
-(UTMALDG), holds each kernel
-against its plain PyTorch version on the card, checks the fused labeling
-program on the card against the CPU, and drives two paths with random
-weights from a seed:
+builds the port's CUDA kernels from `labelany3d_tpu_torch/csrc/` with
+nvcc (one process per source, all at once: K1 to K4 and the attention
+backward, whose dQ and dK/dV kernels live in the two attention libraries),
+checks that the two attention kernels and the reciprocal-NN argmax compiled
+to wgmma (HGMMA) and TMA loads (UTMALDG), holds each kernel against its
+plain PyTorch version on the card (the backward kernels at K2's path
+shapes and at the train shape), checks the fused labeling program on the
+card against the CPU, and drives these paths with random weights from a
+seed:
 
   * the `fast` route (MoGe + DepthPro with ViT-L backbones at the `large`
     preset) over 16 synthetic 512x512 images in two batches of 8;
@@ -45,12 +47,13 @@ weights from a seed:
     matcher runs K1 and K2 at head dim 32) with weights made as released
     torch state dicts from a seed and loaded through the port's
     converters, the `all` route at the reference's configuration (those
-    three and `run.obj_rec=trellis`) over 2 images with 2 objects each, and
+    three and `run.obj_rec=trellis`) over 1 image with 2 objects, and
     the tiny configs on the card against the CPU;
   * Hunyuan3D, stage 6's `obj_rec=hunyuan3d` and `hunyuan3d_carve`: the
     components at the released widths (the SDXL-class mvd_std grid
-    diffusion with its CLIP ViT-L/14 and ViT-bigG/14 towers and VAE, 50
-    Euler-ancestral steps at 1536x1024; SVRM's camera-modulated DINOv2
+    diffusion with its CLIP ViT-L/14 and ViT-bigG/14 towers and VAE, 25
+    of the released 50 Euler-ancestral steps at 1536x1024 (the route runs
+    all 50); SVRM's camera-modulated DINOv2
     ViT-B/14 and 16 LRM blocks -> K2, the triplane field on a 96^3 lattice,
     the mesh; the visual-hull carver over Zero123 views) with weights made
     as released torch state dicts from a seed and loaded through the
@@ -86,13 +89,16 @@ weights from a seed:
     Kabsch and Umeyama, the native RLE codec against the numpy one, and a
     `fast` batch under `trace`;
   * the fine-tuning step (`parallel/train.py`): K1 and its autograd (the
-    kernel forward, the plain fp32 backward) at MoGe ViT-L's train shape
-    against the plain version; `MoGeModel(MoGeConfig.vitl())` trained at
-    518 px on a batch of 8 (a cold and 5 warm steps, then 2 through a
-    one-rank mesh under NCCL against the steps without one); its
+    kernel forward with its LSE, the dQ and dK/dV backward kernels) at MoGe
+    ViT-L's train shape against the plain version; `MoGeModel(MoGeConfig.vitl())`
+    trained at 518 px on a batch of 8 (a cold and 5 warm steps, then 2
+    through a one-rank mesh under NCCL against the steps without one); its
     gradients at depth 2 on the card against the CPU, with the attention
     output cut from the graph as a planted fault; `parallel.dryrun`'s
-    `entry()` and `dryrun_multichip(1)`.
+    `entry()` and `dryrun_multichip(1)`; and a rope backbone (the MASt3R
+    encoder's ViT-L/16 at depth 2, 1024 patches: K2 and its backward)
+    trained on the card, its gradients against the CPU's with the same
+    planted fault.
 
 Each phase prints one line; any failure exits non-zero. Without CUDA, or
 without the rest of the repository beside it, it exits non-zero and prints
@@ -141,6 +147,9 @@ LIBRARY_SCORE_BYTES = 24e9
 # best area beats the runner-up by more than this relative margin.
 K4_REL_TOL = 1e-6
 H100_F32_FLOPS = 67e12     # fp32 outside the tensor cores, H100 SXM data sheet
+# The Pallas TPU library file whose backward kernels the port's
+# attention_bwd_sm90.cuh replaces (the `replaces` of their table rows).
+LIBRARY_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 BOX_TOL = 1e-3             # geometry in f32 with TF32 off, sums reordered
 IMAGE_HW = (512, 512)
 N_IMAGES = 16
@@ -338,6 +347,126 @@ def check_flash(b: int, sq: int, sk: int, seed: int, heads: int = 12, d: int = 6
             res["graph_ms"] = time_cuda_graph(lambda: att.flash_sdpa(q, k, v, seg))
             res["library_graph_ms"] = time_cuda_graph(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    return res
+
+
+# K2's backward kernels (dQ, dK/dV) against their plain version
+# (`flash_sdpa_backward_reference`, fp32 from the same bf16 inputs and a
+# bf16-exact cotangent, with the plain LSE and output): P and dS are rounded
+# to bf16 before their products and the gradients to bf16, which puts the
+# relative L2 error near 2.4e-3 (the JAX package's own bf16 VJP reads 2.34e-3
+# against its fp32 one at the train shape); the largest error is held to a
+# share of the largest gradient. The same limits as K1's gradient.
+K2_GRAD_REL_TOL = 5e-3
+K2_GRAD_MAX_ABS_TOL = 1e-2
+
+
+def backward_bound_ms(b: int, sq: int, sk_real: int, heads: int, d: int, part: str = "all"):
+    """Least time of the attention backward on an H100 SXM, the larger of
+    two. Operations, on the bf16 tensor cores over the real keys, products
+    of 2 * Sq * Sk * d a head: the gradient needs five (S = QK^T, dP = dO
+    V^T, dV, dK, dQ); the dQ kernel alone three (S, dP, dQ), the dK/dV
+    kernel four (S, dP, dV, dK). Bytes (bf16): q, k, v, o and do read and
+    dq, dk, dv written once for the gradient; a kernel alone reads q, k, v,
+    do and the fp32 LSE and D and writes its own outputs."""
+    prod = 2 * b * heads * sq * sk_real * d
+    q_bytes, k_bytes = 2 * b * heads * sq * d, 2 * b * heads * sk_real * d
+    rows = 8 * b * heads * sq
+    if part == "dq":
+        return bound(3 * q_bytes + 2 * k_bytes + rows, 3 * prod)
+    if part == "dkdv":
+        return bound(2 * q_bytes + 4 * k_bytes + rows, 4 * prod)
+    return bound(4 * q_bytes + 4 * k_bytes, 5 * prod)
+
+
+def _grad_errors(got, want) -> dict:
+    """Relative L2 and largest error (absolute, and over the largest
+    gradient) of each of dq, dk, dv."""
+    import torch
+
+    res = {"finite": all(bool(torch.isfinite(g).all()) for g in got)}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        diff = g.float() - w.float()
+        res[f"{name}_rel_err"] = float(diff.norm() / w.float().norm())
+        res[f"{name}_max_abs_err"] = float(diff.abs().max())
+        res[f"{name}_max_abs_of_max"] = float(diff.abs().max() / w.float().abs().max())
+    res["rel_err"] = max(res[f"{n}_rel_err"] for n in ("dq", "dk", "dv"))
+    res["max_abs_err"] = max(res[f"{n}_max_abs_err"] for n in ("dq", "dk", "dv"))
+    res["max_abs_of_max"] = max(res[f"{n}_max_abs_of_max"] for n in ("dq", "dk", "dv"))
+    res["ok"] = (res["finite"] and res["rel_err"] <= K2_GRAD_REL_TOL
+                 and res["max_abs_of_max"] <= K2_GRAD_MAX_ABS_TOL)
+    return res
+
+
+def check_flash_grad(b: int, sq: int, sk: int, seed: int, heads: int = 16, d: int = 64,
+                     pad_keys: int = 0, nan_v: bool = False, fused: bool = False,
+                     timed: bool = False) -> dict:
+    """K2 under autograd on the card (the forward kernel with its LSE, then
+    the dQ and dK/dV kernels) against `flash_sdpa_backward_reference` from
+    the same bf16 inputs. `pad_keys` > 0 masks the last keys by segment ids
+    (self-attention); `nan_v` fills their V rows with NaN; `fused` reads q,
+    k and v as column views of one (B, S, 3 * H * D) tensor (SVRM's encoder,
+    the rope ViT). With `timed`: the backward's time (both kernels and the
+    row terms before them), each kernel's device time in a trace of such
+    calls, the plain version's, SDPA's backward under the same mask, and
+    the bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from labelany3d_tpu_torch.ops import attention as att
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if fused:
+        w = heads * d
+        qkv = torch.randn(b, sq, 3 * w, device="cuda", generator=g).bfloat16()
+        q, k, v = (qkv[..., i * w:(i + 1) * w].unflatten(-1, (heads, d)) for i in range(3))
+    else:
+        q, k, v = (torch.randn(b, s, heads, d, device="cuda", generator=g).bfloat16()
+                   for s in (sq, sk, sk))
+    seg = None
+    if pad_keys:
+        seg = torch.zeros(b, sk, dtype=torch.int32, device="cuda")
+        seg[:, sk - pad_keys:] = 1
+        if nan_v:
+            v[:, sk - pad_keys:] = float("nan")
+    cot = torch.randn(b, sq, heads, d, device="cuda", generator=g).bfloat16()
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    launches = att.FLASH_BACKWARD_LAUNCHES.count
+    att.flash_sdpa(*leaves, seg).backward(cot)
+    got = [t.grad for t in leaves]
+    del leaves
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = att.flash_sdpa_reference(qf, kf, vf, seg)
+    want = att.flash_sdpa_backward_reference(
+        qf, kf, vf, out, att.flash_sdpa_lse_reference(qf, kf, seg), cot.float(), seg)
+    del qf, kf, vf, out
+    torch.cuda.synchronize()
+    res = {"launches": att.FLASH_BACKWARD_LAUNCHES.count - launches, **_grad_errors(got, want)}
+    del got, want
+    torch.cuda.empty_cache()
+    if timed:
+        out, lse = att.flash_sdpa_kernel(q, k, v, seg, lse=True)
+        res["ms"] = time_cuda(lambda: att.flash_sdpa_backward_kernel(q, k, v, out, lse, cot, seg))
+        res.update(backward_kernel_ms(
+            lambda: att.flash_sdpa_backward_kernel(q, k, v, out, lse, cot, seg)))
+        res["plain_ms"] = time_cuda(
+            lambda: att.flash_sdpa_backward_reference(q, k, v, out, lse, cot, seg),
+            iters=3, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        mask = None if seg is None else (seg == 0)[:, None, None, :]
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        go = cot.transpose(1, 2)
+        res["library_ms"] = time_cuda(
+            lambda: torch.autograd.grad(sdpa, (qt, kt, vt), go, retain_graph=True))
+        sk_real = sk - pad_keys
+        res["bound_ms"], res["bound_by"] = backward_bound_ms(b, sq, sk_real, heads, d)
+        res["dq_bound_ms"], res["dq_bound_by"] = backward_bound_ms(b, sq, sk_real, heads, d,
+                                                                   "dq")
+        res["dkdv_bound_ms"], res["dkdv_bound_by"] = backward_bound_ms(b, sq, sk_real, heads,
+                                                                       d, "dkdv")
+        res.update(against_yardsticks(res))
+        del out, lse, sdpa, qt, kt, vt
+        torch.cuda.empty_cache()
     return res
 
 
@@ -900,7 +1029,8 @@ KERNEL_NAMES = {"k1": "packed_attention", "k2": "flash_attention", "k3": "nn_arg
 # one template (attn_sm90::attention_kernel) over their loaders; a K3 call
 # whose bank is split over blocks adds a merge kernel.
 PROFILE_NAMES = {"k1": "PackedLoader", "k2": "StridedLoader", "k3": "nn_argmax_kernel",
-                 "k3_merge": "nn_argmax_merge", "k4": "yaw_minarea"}
+                 "k3_merge": "nn_argmax_merge", "k4": "yaw_minarea",
+                 "bwd_dq": "dq_kernel", "bwd_dkdv": "dkdv_kernel"}
 # What the Hopper designs of K1, K2 and K3 must compile to: warpgroup MMAs
 # (wgmma) and TMA tile loads.
 SASS_REQUIRED = ("HGMMA", "UTMALDG")
@@ -982,6 +1112,26 @@ def profile_pass(run, host: bool = True) -> dict:
         out[f"{k}_ms"] = sum(r[0] for r in dev if sub in r[1])
         out[f"{k}_events"] = sum(r[2] for r in dev if sub in r[1])
     return out
+
+
+def backward_kernel_ms(run, iters: int = 20, warmup: int = 3) -> dict:
+    """Each backward kernel's mean device time (`dq_ms`, `dkdv_ms`) over
+    its events in one device-only trace of `iters` calls of `run`, a whole
+    backward (both kernels), after `warmup` untraced calls. The trace may
+    drop a few of the last events, so the mean is over the events it kept
+    (`dq_events`, `dkdv_events`); it fails if it kept none of a kernel."""
+    import torch
+
+    for _ in range(warmup):
+        run()
+    torch.cuda.synchronize()
+    p = profile_pass(lambda: [run() for _ in range(iters)], host=False)
+    if not p["bwd_dq_events"] or not p["bwd_dkdv_events"]:
+        raise RuntimeError(f"{iters} backward calls traced {p['bwd_dq_events']} dQ and "
+                           f"{p['bwd_dkdv_events']} dK/dV kernels")
+    return {"dq_ms": p["bwd_dq_ms"] / p["bwd_dq_events"], "dq_events": p["bwd_dq_events"],
+            "dkdv_ms": p["bwd_dkdv_ms"] / p["bwd_dkdv_events"],
+            "dkdv_events": p["bwd_dkdv_events"]}
 
 
 def check_registration_outputs(save_dir: str, loader) -> tuple:
@@ -1328,8 +1478,8 @@ def k3_shapes_json(by_shape: dict) -> str:
 
 
 def kernel_checks() -> dict:
-    """K2, K3 and K4 against their plain versions at the registration
-    path's shapes; raises SystemExit on any disagreement. Returns the timed
+    """K2, K2's backward, K3 and K4 against their plain versions at their
+    paths' shapes; raises SystemExit on any disagreement. Returns the timed
     result of each kernel."""
     # K2: the decoder's self-attention over 4 objects x 8 views, a cross
     # shape with Sq != Sk read through strides, and segment ids with NaN pads.
@@ -1381,6 +1531,29 @@ def kernel_checks() -> dict:
     if bad:
         raise SystemExit(f"K2 disagrees with its plain version: {bad}")
 
+    # K2's backward kernels at K2's path shapes: the MASt3R rope encoder
+    # (the rope ViT's backward), the TRELLIS SLat torso with 1024 keys
+    # masked by segment ids (and again with NaN in their V rows), the SS
+    # flow's cross-attention (a ragged last key tile), SVRM's encoder read
+    # as column views of its fused projection, and the elevation decoder
+    # at head dim 32.
+    k2_bwd = {"rope_encoder": check_flash_grad(36, 1024, 1024, seed=60, timed=True),
+              "trellis_slat_self": check_flash_grad(2, 8192, 8192, seed=61, pad_keys=1024,
+                                                    timed=True),
+              "trellis_slat_self_nan_v": check_flash_grad(2, 8192, 8192, seed=62,
+                                                          pad_keys=1024, nan_v=True),
+              "trellis_ss_cross": check_flash_grad(2, 4096, 1374, seed=63, timed=True),
+              "svrm_encoder_fused": check_flash_grad(7, 1297, 1297, seed=64, heads=12,
+                                                     fused=True, timed=True),
+              "elevation_decoder": check_flash_grad(1, 1024, 1024, seed=65, heads=2, d=32,
+                                                    timed=True)}
+    for name, r in k2_bwd.items():
+        _say(f"K2bwd:{name}", **r, rel_tol=K2_GRAD_REL_TOL,
+             max_abs_tol_of_max_grad=K2_GRAD_MAX_ABS_TOL)
+    bad = [n for n, r in k2_bwd.items() if not r["ok"] or r["launches"] != 1]
+    if bad:
+        raise SystemExit(f"K2's backward disagrees with its plain version: {bad}")
+
     # K3: round 1 of a stage-A matcher forward (32 pairs, 4096 queries each,
     # against 512^2 banks), a compacted round (1024 queries, with its library
     # yardstick), the same two rounds of a stage-B forward (at most 4 pairs:
@@ -1424,7 +1597,7 @@ def kernel_checks() -> dict:
     bad = [name for name, r in k4.items() if not r["ok"]]
     if bad:
         raise SystemExit(f"K4 disagrees with its plain version: {bad}")
-    return {"k2": k2, "k3": k3, "k4": k4}
+    return {"k2": k2, "k2_bwd": k2_bwd, "k3": k3, "k4": k4}
 
 
 # Phase 11, TRELLIS: weights in the release's torch layout, the components at
@@ -2101,7 +2274,7 @@ SD_SAMPLE_REL_TOL = 1e-3
 # or flat image agrees with the CPU's whatever the port computed.
 SD_MIN_STD_LEVELS = 8.0
 SD_MAX_SATURATED = 0.25
-SD_IMAGES = 2              # phase 12(c): 2 images x 2 objects
+SD_IMAGES = 1              # phase 12(c): 1 image x 2 objects
 SD_INSTANCES = 2
 SD_CROP = 512              # the crops the route's stage 3 writes
 # 12(c)'s peak when the runner kept every stage's models (NVIDIA H100 80GB
@@ -2314,7 +2487,7 @@ def run_reference_route(tmp: str) -> dict:
     """Phase 12(c): `run_stages("all", ...)`
     at the reference's configuration, run.enhance=invsr,
     run.amodal_completion=our, run.elevation=zero123 and run.obj_rec=trellis,
-    over 2 synthetic images with 2 objects each; every generative backend
+    over 1 synthetic image with 2 objects; every generative backend
     from the registry's factories at its released widths with its default
     (random) initialisation, whose zero-initialised UNet and flow output
     layers (as the JAX package's) make DDIM only rescale its noise and
@@ -2582,6 +2755,10 @@ HY_IMAGES = 1              # phase 13(c): 1 image x 2 objects
 HY_INSTANCES = 2
 HY_VIEW = 512              # a grid tile and a crop
 HY_ROUTE_PEAK_KEPT_GB = 35.25  # 13(c)'s peak without unloading (as SD_ROUTE_PEAK_KEPT_GB)
+# 13(b) times the mvd_std sampler over half the released 50 Euler-ancestral
+# steps, for the script's time limit: 13(c)'s route runs all 50, and one
+# step alone is traced (`step`).
+HY_COMPONENT_STEPS = 25
 
 
 def released_svrm_state(cfg, seed: int = 80, std: float = 0.02,
@@ -2742,7 +2919,8 @@ def svrm_k2_launches(cfg) -> int:
 def run_hunyuan_components() -> dict:
     """Phase 13(b): the Hunyuan3D components at the released widths with
     seeded released-layout weights, each call cold (its first) and warm
-    between CUDA syncs: `MVDStdViews.generate_views` (50 steps), one
+    between CUDA syncs: `MVDStdViews.generate_views` (`HY_COMPONENT_STEPS`
+    steps), one
     `MVDUNet` write forward (both reference rows at 64^2) and one read
     forward (both CFG rows of the 192x128 grid latent), `CamModViT` on the
     7 views, the triplane decoder, `SVRM.grid` at G = 96,
@@ -2753,7 +2931,10 @@ def run_hunyuan_components() -> dict:
     import numpy as np
     import torch
 
+    import dataclasses
+
     from labelany3d_tpu_torch.models.diffusion import MVDStdViews
+    from labelany3d_tpu_torch.models.diffusion.mvd import MVDConfig
     from labelany3d_tpu_torch.models.svrm import SVRMConfig, SVRMReconstruction
     from labelany3d_tpu_torch.ops.marching_cubes import marching_cubes_mesh
     from labelany3d_tpu_torch.pipeline.backends import make_reconstruction
@@ -2761,7 +2942,8 @@ def run_hunyuan_components() -> dict:
     counters, plains = kernel_counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    mv = MVDStdViews(device="cuda")
+    mv = MVDStdViews(cfg=dataclasses.replace(MVDConfig(), steps=HY_COMPONENT_STEPS),
+                     device="cuda")
     svrm_cfg = SVRMConfig()
     svrm_tree, n_params = install_hunyuan_weights(mv, svrm_cfg)
     recon = SVRMReconstruction(cfg=svrm_cfg, params=svrm_tree, device="cuda")
@@ -4480,25 +4662,29 @@ def run_giant(tmp: str, scene_root: str) -> dict:
 
 
 # Phase 17, the fine-tuning step (`parallel/train.py`): MoGe ViT-L with the
-# checkpoint head trained at 518 px, K1 in its forward and K1's plain
-# backward; the multi-device code around it at one rank.
+# checkpoint head trained at 518 px, K1 in its forward and the backward
+# kernels (K2's backward over the packed layout) in its backward; a rope
+# backbone (K2 and its backward) trained at the MASt3R encoder's widths; the
+# multi-device code around them at one rank.
 
 TRAIN_BATCH = 8            # the production batch of the depth stage
 TRAIN_SIZE = 518           # 37^2 patches of 14 px: 1 + 1369 tokens, padded to 1408
 TRAIN_WARM_STEPS = 5
 TRAIN_INVALID = 0.1        # share of target pixels marked invalid
 TRAIN_SHAPE = dict(b=TRAIN_BATCH, n_pad=1408, n_real=1370, heads=16, d=64)
-# K1's d`qkv` on the card (kernel forward, plain fp32 backward rounded to
-# bf16) against the fp32 plain version's autograd gradient from the same
-# bf16 qkv and a bf16-exact cotangent: the result's bf16 rounding puts the
-# relative L2 near 1e-3; the largest error is held to a share of the
-# largest gradient. A gradient cut off at the attention output is 1.0.
+# K1's d`qkv` on the card (kernel forward, the backward kernels with P and
+# dS rounded to bf16 before their products, the result in bf16) against the
+# fp32 plain version's autograd gradient from the same bf16 qkv and a
+# bf16-exact cotangent: the roundings put the relative L2 near 2.4e-3 (the
+# JAX package's own bf16 VJP reads 2.34e-3 against its fp32 one at this
+# shape); the largest error is held to a share of the largest gradient. A
+# gradient cut off at the attention output is 1.0.
 K1_GRAD_REL_TOL = 5e-3
 K1_GRAD_MAX_ABS_TOL = 1e-2
 # The step through make_mesh(1, 1) against the step without a mesh: the
 # same program plus collectives over one rank. The step repeats bit for bit
-# (the MoGe head's resize and edge pads have no atomics in their backward),
-# so anything above rounding is a fault of the mesh path.
+# (the MoGe head's resize and edge pads, and the attention backward kernels,
+# have no atomics), so anything above rounding is a fault of the mesh path.
 TRAIN_MESH_REL_TOL = 1e-6
 # The card's bf16 loss and gradients at depth 2 against the CPU's f32 ones
 # (relative L2 per tensor, key bias left out as above), from the same
@@ -4509,6 +4695,13 @@ TRAIN_MESH_REL_TOL = 1e-6
 # on every qkv weight.
 TRAIN_CPU_LOSS_TOL = 1e-2
 TRAIN_CPU_REL_TOL = 0.2
+# Phase 17(e): the MASt3R encoder (CroCo ViT-L/16, 2D RoPE, no class token,
+# no LayerScale: every block's attention through K2 and its backward) at
+# depth 2 on 512^2 images (32^2 = 1024 patches), the card's bf16 against the
+# CPU's f32 under the same limits as 17(c), then a few AdamW steps on the card.
+ROPE_SIZE = 512
+ROPE_DEPTH = 2
+ROPE_STEPS = 3
 
 
 def train_batch(seed: int = 170, b: int = TRAIN_BATCH, size: int = TRAIN_SIZE):
@@ -4554,11 +4747,12 @@ def train_config(depth: int | None = None, dtype=None):
 def check_attention_grad(shape: dict, seed: int, nan_pad_v: bool = False,
                          timed: bool = False) -> dict:
     """K1's autograd on the card at one shape: d`qkv` of the kernel forward
-    and plain backward against the gradient of the plain version under
-    autograd in fp32, for a bf16-exact cotangent on every row. With
-    `nan_pad_v` the pad rows of V hold NaN. With `timed`, the plain
-    backward's time and SDPA's forward and backward times (a yardstick,
-    with a key mask), and the backward's bound."""
+    and the backward kernels against the gradient of the plain version
+    under autograd in fp32, for a bf16-exact cotangent on every row. With
+    `nan_pad_v` the pad rows of V hold NaN. With `timed`, the backward's
+    time (both kernels and the row terms before them), each kernel's alone,
+    the plain backward's (`packed_sdpa_backward`, the CPU's), SDPA's
+    backward (a yardstick, with a key mask), and the bounds."""
     import torch
     import torch.nn.functional as F
 
@@ -4572,22 +4766,34 @@ def check_attention_grad(shape: dict, seed: int, nan_pad_v: bool = False,
         base[:, n_real:, 2 * w:] = float("nan")
     cot = torch.randn(b, n_pad, w, device="cuda", generator=g).bfloat16()
     qkv = base.clone().requires_grad_()
+    launches, plain = att.PACKED_BACKWARD_LAUNCHES.count, att.BACKWARD_CALLS.count
     out = att.packed_sdpa(qkv, heads, n_real)
     out.backward(cot)
+    launches = att.PACKED_BACKWARD_LAUNCHES.count - launches
+    plain = att.BACKWARD_CALLS.count - plain
     ref = base.float().requires_grad_()
     att.packed_sdpa_reference(ref, heads, n_real).backward(cot.float())
     got, want = qkv.grad.float(), ref.grad
     torch.cuda.synchronize()
-    res = {"has_grad_fn": out.grad_fn is not None,
-           "finite": bool(torch.isfinite(got).all()),
+    res = {"has_grad_fn": out.grad_fn is not None, "backward_launches": launches,
+           "plain_backward_calls": plain, "finite": bool(torch.isfinite(got).all()),
            "max_abs_err": float((got - want).abs().max()),
            "max_abs_grad": float(want.abs().max()),
            "rel_err": float((got - want).norm() / want.norm())}
     res["ok"] = (res["has_grad_fn"] and res["finite"] and res["rel_err"] <= K1_GRAD_REL_TOL
-                 and res["max_abs_err"] <= K1_GRAD_MAX_ABS_TOL * res["max_abs_grad"])
+                 and res["max_abs_err"] <= K1_GRAD_MAX_ABS_TOL * res["max_abs_grad"]
+                 and launches == 1 and plain == 0)
     del qkv, ref, out, got, want
     if timed:
+        out, lse = att.packed_sdpa_kernel(base, heads, n_real, lse=True)
         res["backward_ms"] = time_cuda(
+            lambda: att.packed_sdpa_backward_kernel(base, out, cot, lse, heads, n_real))
+        res.update(backward_kernel_ms(
+            lambda: att.packed_sdpa_backward_kernel(base, out, cot, lse, heads, n_real)))
+        res["forward_lse_ms"] = time_cuda(
+            lambda: att.packed_sdpa_kernel(base, heads, n_real, lse=True))
+        del out, lse
+        res["plain_backward_ms"] = time_cuda(
             lambda: att.packed_sdpa_backward(base, cot, heads, n_real), iters=5, warmup=1)
         q, k, v = (base[..., i * w:(i + 1) * w].view(b, n_pad, heads, d).transpose(1, 2)
                    .detach().requires_grad_() for i in range(3))
@@ -4596,12 +4802,17 @@ def check_attention_grad(shape: dict, seed: int, nan_pad_v: bool = False,
         go = cot.view(b, n_pad, heads, d).transpose(1, 2)
         res["library_backward_ms"] = time_cuda(
             lambda: torch.autograd.grad(sdpa, (q, k, v), go, retain_graph=True))
-        # The backward's least time: qkv and the cotangent read, d`qkv`
-        # written (bf16); QK^T recomputed, then dV, dP, dQ and dK, five
-        # products over the real keys on the bf16 tensor cores.
+        # The backward's least time: qkv, the output and the cotangent read,
+        # d`qkv` written (bf16); QK^T recomputed, then dV, dP, dQ and dK,
+        # five products over the real keys on the bf16 tensor cores. Each
+        # kernel's alone as `backward_bound_ms` counts it.
         res["backward_bound_ms"], res["backward_bound_by"] = bound(
-            2 * (3 * b * n_pad * w + b * n_pad * w + 3 * b * n_pad * w),
+            2 * (3 * b * n_pad * w + 2 * b * n_pad * w + 3 * b * n_pad * w),
             10 * b * heads * n_pad * n_real * d)
+        res["dq_bound_ms"], res["dq_bound_by"] = backward_bound_ms(b, n_pad, n_real, heads, d,
+                                                                   "dq")
+        res["dkdv_bound_ms"], res["dkdv_bound_by"] = backward_bound_ms(b, n_pad, n_real, heads,
+                                                                       d, "dkdv")
     torch.cuda.empty_cache()
     return res
 
@@ -4611,11 +4822,11 @@ def run_train_step() -> dict:
     card (Flax's initialisers, seed 171, f32 master weights, bf16 compute),
     `init_train_state` and `make_train_step` without a mesh on one batch of
     8 (`train_batch`): one cold step, then `TRAIN_WARM_STEPS` warm ones,
-    each timed by CUDA events; K1 launches, plain calls and backward calls
-    counted over those steps; the peak; one more step traced for the idle
-    share. Then the same start through `make_mesh(1, 1)` under NCCL at
-    world size 1 (`launch.process_group`) for 2 steps, against the first 2
-    steps without a mesh."""
+    each timed by CUDA events; K1 launches, plain calls, backward kernel
+    launches and plain backward calls counted over those steps; the peak;
+    one more step traced for the idle share. Then the same start through
+    `make_mesh(1, 1)` under NCCL at world size 1 (`launch.process_group`)
+    for 2 steps, against the first 2 steps without a mesh."""
     import numpy as np
     import torch
 
@@ -4639,7 +4850,8 @@ def run_train_step() -> dict:
     res = {"parameters": sum(p.numel() for p in model.parameters()),
            "param_dtypes": sorted({str(p.dtype) for p in model.parameters()})}
     step = make_train_step(model, opt)
-    counts = (att.KERNEL_LAUNCHES, att.PLAIN_CALLS, att.BACKWARD_CALLS)
+    counts = (att.KERNEL_LAUNCHES, att.PLAIN_CALLS, att.BACKWARD_CALLS,
+              att.PACKED_BACKWARD_LAUNCHES)
     for c in counts:
         c.reset()
     torch.cuda.synchronize()
@@ -4664,18 +4876,19 @@ def run_train_step() -> dict:
     res.update(losses=losses, steps=steps, step_ms=step_ms,
                warm_ms=float(np.mean(step_ms)), max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                k1_launches=counts[0].count, k1_plain_calls=counts[1].count,
-               k1_backward_calls=counts[2].count)
+               k1_backward_calls=counts[2].count, k1_backward_launches=counts[3].count)
     res["images_per_s"] = TRAIN_BATCH / (res["warm_ms"] / 1e3)
     prof = profile_pass(lambda: step(state, *batch), host=False)
     res["profile"] = {k: prof[k] for k in ("wall_ms", "device_ms", "k1_ms", "k1_events",
-                                           "top_device")}
+                                           "bwd_dq_ms", "bwd_dq_events", "bwd_dkdv_ms",
+                                           "bwd_dkdv_events", "top_device")}
     res["idle_share"] = (1.0 - prof["device_ms"] / res["warm_ms"] if prof["device_ms"] > 0
                          else "not measured")
     depth = cfg.backbone.depth
     res["ok"] = (bool(np.isfinite(losses).all()) and losses[-1] < losses[0]
                  and res["k1_launches"] == depth * steps and res["k1_plain_calls"] == 0
-                 and res["k1_backward_calls"] == depth * steps and res["param_dtypes"] ==
-                 ["torch.float32"])
+                 and res["k1_backward_launches"] == depth * steps
+                 and res["k1_backward_calls"] == 0 and res["param_dtypes"] == ["torch.float32"])
     del state, opt, step, model
     torch.cuda.empty_cache()
 
@@ -4743,7 +4956,7 @@ def train_card_vs_cpu(seed: int = 172) -> dict:
     feed the head), 518 px, batch 1, the same weights (Flax's initialisers
     from a seed, LayerScale gammas 1 so the attention branch weighs as much
     as the residual) and the same batch: the card's bf16 compute (K1
-    forward, plain backward) against the CPU's f32, the loss and every
+    forward, the backward kernels) against the CPU's f32, the loss and every
     parameter's gradient. Then a fault planted on the card: the attention
     output cut from the graph (K1's kernel called without its autograd
     function, as the port did before its backward existed)."""
@@ -4790,6 +5003,105 @@ def train_card_vs_cpu(seed: int = 172) -> dict:
     return res
 
 
+def rope_train_card_vs_cpu(seed: int = 176) -> dict:
+    """Phase 17(e): a rope backbone trained on the card. The MASt3R encoder
+    (`MatcherConfig.mast3r_vitl().encoder`: ViT-L/16, 2D RoPE, 16 heads of
+    64, no class token, no LayerScale) cut to `ROPE_DEPTH` blocks, on one
+    seeded 512^2 image (1024 patches, no pad), the loss the mean squared
+    error of its tokens against a seeded target. The card's bf16 compute
+    (K2 forward with its LSE, K2's backward kernels) against the CPU's f32
+    from the same weights (Flax's initialisers from a seed): the loss and
+    every parameter's gradient. A fault planted on the card: the attention
+    output cut from the graph (K2's kernel called without its autograd
+    function, as the port did before its backward existed). Then
+    `ROPE_STEPS` AdamW steps on the card, each timed, with K2's launches
+    and its backward's counted over them."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from labelany3d_tpu_torch.models import vit as vit_mod
+    from labelany3d_tpu_torch.models.matcher import MatcherConfig
+    from labelany3d_tpu_torch.models.weights import init_params_
+    from labelany3d_tpu_torch.ops import attention as att
+    from labelany3d_tpu_torch.utils.precision import full_f32
+
+    enc = dataclasses.replace(MatcherConfig.mast3r_vitl().encoder, depth=ROPE_DEPTH,
+                              out_indices=tuple(range(ROPE_DEPTH)))
+    grid = (ROPE_SIZE // enc.patch_size,) * 2
+    cpu = vit_mod.ViT(dataclasses.replace(enc, dtype=torch.float32), grid)
+    init_params_(cpu, torch.Generator().manual_seed(seed))
+    with torch.device("cuda"):
+        card = vit_mod.ViT(enc, grid)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(seed + 1)
+    image = rng.uniform(size=(1, ROPE_SIZE, ROPE_SIZE, 3)).astype(np.float32)
+    target = rng.standard_normal((1, grid[0] * grid[1], enc.width)).astype(np.float32)
+
+    def loss_of(model, device):
+        tokens = model(torch.as_tensor(image, device=device))["tokens"]
+        return ((tokens.float() - torch.as_tensor(target, device=device)) ** 2).mean()
+
+    def grads(model, device):
+        model.zero_grad(set_to_none=True)
+        with torch.enable_grad(), full_f32():
+            loss = loss_of(model, device)
+            loss.backward()
+        return float(loss.detach()), {
+            k: (p.grad if p.grad is not None else torch.zeros_like(p)).float().cpu()
+            for k, p in model.named_parameters()}
+
+    loss_cpu, g_cpu = grads(cpu, "cpu")
+    loss_card, g_card = grads(card, "cuda")
+    rel = grad_rel(g_card, g_cpu)
+    worst = max(rel, key=rel.get)
+    res = {"tokens": grid[0] * grid[1], "loss_cpu": loss_cpu, "loss_card": loss_card,
+           "loss_rel": abs(loss_card - loss_cpu) / abs(loss_cpu),
+           "grad_rel_max": rel[worst], "grad_rel_worst": worst,
+           "grad_rel_median": sorted(rel.values())[len(rel) // 2], "tensors": len(rel)}
+    real = vit_mod.flash_sdpa
+    vit_mod.flash_sdpa = att.flash_sdpa_kernel
+    try:
+        _, g_fault = grads(card, "cuda")
+    finally:
+        vit_mod.flash_sdpa = real
+    fault = grad_rel(g_fault, g_cpu)
+    qkv = [k for k in fault if k.endswith("attn.qkv.weight")]
+    res["fault_detached_qkv_weight_rel"] = [fault[k] for k in qkv]
+    del cpu, g_cpu, g_card, g_fault
+
+    opt = torch.optim.AdamW(card.parameters(), lr=1e-4)
+    counts = (att.FLASH_LAUNCHES, att.FLASH_PLAIN_CALLS, att.FLASH_BACKWARD_LAUNCHES,
+              att.BACKWARD_CALLS)
+    for c in counts:
+        c.reset()
+    losses, step_ms = [], []
+    for _ in range(ROPE_STEPS):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        opt.zero_grad(set_to_none=True)
+        loss = loss_of(card, "cuda")
+        loss.backward()
+        opt.step()
+        e1.record()
+        e1.synchronize()
+        losses.append(float(loss.detach()))
+        step_ms.append(e0.elapsed_time(e1))
+    res.update(losses=losses, step_ms=step_ms, k2_launches=counts[0].count,
+               k2_plain_calls=counts[1].count, k2_backward_launches=counts[2].count,
+               k1_backward_calls=counts[3].count)
+    res["ok"] = (res["loss_rel"] <= TRAIN_CPU_LOSS_TOL and res["grad_rel_max"] <= TRAIN_CPU_REL_TOL
+                 and len(qkv) == ROPE_DEPTH and all(fault[k] > TRAIN_CPU_REL_TOL for k in qkv)
+                 and bool(np.isfinite(losses).all()) and losses[-1] < losses[0]
+                 and res["k2_launches"] == ROPE_DEPTH * ROPE_STEPS
+                 and res["k2_backward_launches"] == ROPE_DEPTH * ROPE_STEPS
+                 and res["k2_plain_calls"] == 0 and res["k1_backward_calls"] == 0)
+    del card, opt
+    torch.cuda.empty_cache()
+    return res
+
+
 def run_multichip() -> dict:
     """Phase 17(d): `entry()` on the card (the full-width forward at 518 px),
     and `dryrun_multichip(1)`: one rank spawned under NCCL, the tiny train
@@ -4821,7 +5133,9 @@ def run_multichip() -> dict:
 def run_train() -> dict:
     """Phase 17: (a) K1's autograd at the train shape, (b) the full-width
     train step, (c) the card against the CPU with a planted fault, (d) the
-    entry forward and the dry run; prints each part's line."""
+    entry forward and the dry run, (e) a rope backbone trained on the card
+    (K2's backward) against the CPU with a planted fault; prints each
+    part's line."""
     out = {"k1": check_attention(TRAIN_SHAPE, seed=170)}
     _say("train:K1", **out["k1"], max_abs_tol=K1_MAX_ABS_TOL, rel_tol=K1_REL_TOL)
     out["grad"] = check_attention_grad(TRAIN_SHAPE, seed=173, timed=True)
@@ -4856,6 +5170,14 @@ def run_train() -> dict:
     if not m["ok"]:
         raise SystemExit("train: the entry forward or the dry run is not as required "
                          "(see train:multichip)")
+    out["rope"] = r = rope_train_card_vs_cpu()
+    _say("train:rope", **{k: json.dumps(v) if isinstance(v, list) else v
+                          for k, v in r.items()}, loss_tol=TRAIN_CPU_LOSS_TOL,
+         rel_tol=TRAIN_CPU_REL_TOL)
+    if not r["ok"]:
+        raise SystemExit("train: the rope backbone's gradients disagree with the CPU's, the "
+                         "planted fault stays under the limit, or its launches or losses are "
+                         "not as required (see train:rope)")
     return out
 
 
@@ -5154,7 +5476,8 @@ def main() -> int:
 
         # 17. The fine-tuning step: K1's autograd at the train shape, MoGe
         # ViT-L trained at 518 px (and through a one-rank mesh), its
-        # gradients on the card against the CPU, the dry run.
+        # gradients on the card against the CPU, the dry run, a rope
+        # backbone trained through K2's backward.
         trn = run_train()
 
     def row(name, source, replaces, launches, r, max_abs_err, **extra):
@@ -5173,6 +5496,38 @@ def main() -> int:
               "swizzle) or 32 (64-byte swizzle) as a template parameter")
 
     k2, k3, k4 = kc["k2"], kc["k3"], kc["k4"]
+    k2_bwd, tg = kc["k2_bwd"], trn["grad"]
+    bwd_design = ("attention_bwd_sm90.cuh: 64-row blocks of four warps, mma.sync m16n8k16 "
+                  "bf16 with fp32 accumulators, ldmatrix from padded shared-memory tiles, "
+                  "cp.async double-buffered streamed tiles with zero-fill for masked rows; "
+                  "the block's own rows and P, dS kept in registers; no atomics")
+
+    def bwd_row(part, replaces):
+        """One backward kernel's row: its device time in a trace of whole
+        backward calls (`backward_kernel_ms`) at the train shape (its main path: K1's backward in 17(b)) and at K2's shapes;
+        `plain_ms` and `library_ms` are the whole backward's (the plain
+        version and SDPA compute dq, dk and dv together)."""
+        name = {"dq": "attention_bwd_dq", "dkdv": "attention_bwd_dkv"}[part]
+        return {"name": name, "route": "cuda",
+                "source": "labelany3d_tpu_torch/csrc/attention_bwd_sm90.cuh",
+                "replaces": replaces, "launches": trn["step"]["k1_backward_launches"],
+                "launches_rope_train": trn["rope"]["k2_backward_launches"],
+                "max_abs_err": max([tg["max_abs_err"]]
+                                   + [r["max_abs_err"] for r in k2_bwd.values()]),
+                "ms": tg[f"{part}_ms"], "plain_ms": tg["plain_backward_ms"],
+                "bound_ms": tg[f"{part}_bound_ms"], "bound_by": tg[f"{part}_bound_by"],
+                "library_ms": tg["library_backward_ms"],
+                "shape": "packed qkv (8, 1408, 3072), n_real 1370, 16 heads of 64 (MoGe "
+                         "ViT-L's train step, K1's backward)",
+                "design": bwd_design, "entry_points": "packed_attention_bwd (K1), "
+                "flash_attention_bwd (K2)",
+                "grad_rel_err_train": tg["rel_err"],
+                **{n: {"ms": r[f"{part}_ms"], "bound_ms": r[f"{part}_bound_ms"],
+                       "bound_by": r[f"{part}_bound_by"], "backward_ms": r["ms"],
+                       "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                       "rel_err": r["rel_err"]}
+                   for n, r in k2_bwd.items() if "ms" in r}}
+
     table = {"kernels": [
         row("packed_attention", "packed_attention.cu", "labelany3d_tpu/ops/attention.py:133",
             launches, k1["moge"], max(r["max_abs_err"] for r in k1.values()),
@@ -5188,13 +5543,15 @@ def main() -> int:
             launches_ckpt_route=croute["launches"]["k1"],
             launches_giant_forward=giant["store"]["launches"]["k1"],
             launches_train_step=trn["step"]["k1_launches"],
+            backward_launches_train_step=trn["step"]["k1_backward_launches"],
             backward_calls_train_step=trn["step"]["k1_backward_calls"],
             train={"shape": "B=8 Npad=1408 n_real=1370 H=16 d=64 (MoGe ViT-L at 518 px)",
                    **{k: trn["k1"][k] for k in timed if k in trn["k1"]},
                    "max_abs_err": trn["k1"]["max_abs_err"],
                    "grad_rel_err": trn["grad"]["rel_err"],
-                   **{k: trn["grad"][k] for k in ("backward_ms", "library_backward_ms",
-                                                  "backward_bound_ms", "backward_bound_by")}},
+                   **{k: trn["grad"][k] for k in ("backward_ms", "plain_backward_ms",
+                                                  "library_backward_ms", "backward_bound_ms",
+                                                  "backward_bound_by")}},
             shape="MoGe B=8 Npad=1408 n_real=1297 H=16 d=64", design=design,
             ratio_to_library=k1["moge"]["ratio_to_library"],
             share_of_bound=k1["moge"]["share_of_bound"], sass=sass["k1"],
@@ -5212,6 +5569,7 @@ def main() -> int:
             launches_svrm_reconstructs=hcomp["launches"]["k2"],
             launches_hunyuan_route=hroute["launches"]["k2"],
             launches_ckpt_route=croute["launches"]["k2"],
+            launches_rope_train=trn["rope"]["k2_launches"],
             shape="q, k, v (32, 1296, 12, 64) bf16", design=design,
             ratio_to_library=k2["path"]["ratio_to_library"],
             share_of_bound=k2["path"]["share_of_bound"], sass=sass["k2"],
@@ -5221,6 +5579,9 @@ def main() -> int:
                             "trellis_slat_self", "trellis_slat_cross",
                             "trellis_slat_self_unmasked", "elevation_decoder",
                             "svrm_encoder", "svrm_lrm_self", "svrm_lrm_cross")}),
+        *(bwd_row(part, replaces) for part, replaces in (
+            ("dq", f"{LIBRARY_FLASH}:1287 (_flash_attention_bwd_dq, pallas_call :1456)"),
+            ("dkdv", f"{LIBRARY_FLASH}:941 (_flash_attention_bwd_dkv, pallas_call :1121)"))),
         row("nn_argmax", "nn_argmax.cu", "labelany3d_tpu/ops/reciprocal_nn.py:29",
             reg["launches"]["k3"], k3["path_bf16"], max(r["max_abs_err"] for r in k3.values()),
             launches_reference_chain=ref["launches"]["k3"],

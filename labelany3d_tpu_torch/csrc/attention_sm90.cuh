@@ -48,7 +48,13 @@
 //     transposes V. PV of tile t and QK^T of tile t + 1 go out as one block.
 //   * Epilogue: O / l rounded to bf16 into the warpgroup's 64 rows of the Q
 //     tile (same swizzle), then one TMA store per warpgroup, which clips
-//     rows past the end.
+//     rows past the end. When the loader gives an LSE pointer (a forward
+//     whose backward will run), each row's log-sum-exp in natural-log
+//     units, m * scale + log(l) (the Pallas library's m + log(l)), goes to
+//     an fp32 (B, H, n_rows) array; a row whose keys are all masked
+//     (l = 0, output 0) gets +inf, which makes its P = 0 in the backward
+//     (attention_bwd_sm90.cuh). The serving routes pass null and write
+//     nothing.
 //
 // The head dim is a template parameter (Tiles<D>, D = 64 or 32); a
 // Loader names its own (Loader::kHeadDim). At d = 32 the matcher's tiny
@@ -256,6 +262,7 @@ __device__ __forceinline__ void issue_qk(float (&sc)[64], uint64_t dq, uint64_t 
 //   load_q(dst, bar, q0, h, b)     TMA the kBlockM x d Q tile at row q0
 //   load_kv(dk, dv, bar, k0, h, b) TMA the 128 x d K and V tiles at key k0
 //   store_o(src, row0, h, b)       TMA-store a 64 x d output tile at row0
+//   lse                            (B, H, n_rows) fp32 row log-sum-exp out, or null
 template <class Loader>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_kernel(const __grid_constant__ Loader ld) {
@@ -463,15 +470,27 @@ __global__ void __launch_bounds__(kThreads, 1)
   // Epilogue: O / l in bf16 into this warpgroup's 64 rows of the Q tile
   // (its last reader was this warpgroup's final QK^T), with the swizzle of
   // the output tensor map, then one TMA store.
-  float inv[2];
+  float inv[2], lsum[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_run[r];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
+    lsum[r] = l;
     inv[r] = l > 0.f ? 1.f / l : 0.f;
   }
   const int row = (t >> 5) * 16 + g;  // row & 7 == g, as for row + 8
+  if (ld.lse != nullptr && c == 0) {
+    float* lse = ld.lse + (static_cast<long long>(b) * gridDim.y + h) * ld.n_rows;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = q0 + 64 * wg + row + 8 * r;
+      if (q < ld.n_rows) {
+        lse[q] = lsum[r] > 0.f ? (m_run[r] * sl2 + log2f(lsum[r])) * 0.6931471805599453f
+                               : INFINITY;
+      }
+    }
+  }
 #pragma unroll
   for (int j = 0; j < T::kChunks; ++j) {
     const uint32_t col = (T::chunk(j, g) << 4) + 4 * c;

@@ -27,11 +27,18 @@
 //     PV (TMA brings them as they are), so a NaN in a pad row never reaches
 //     an output. Fully masked rows write zeros.
 //
+// Backward. flash_attention_bwd is the library's custom VJP
+// (_flash_attention_bwd_dkv and _flash_attention_bwd_dq, its two further
+// pallas_calls): the dQ and dK/dV kernels of attention_bwd_sm90.cuh over
+// the same strided operands and segment ids, from the row log-sum-exp that
+// the forward writes when asked (`lse`).
+//
 // What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): the
 // matcher decoder's call, P pairs x 1296 queries x 1296 keys x 12 heads of
 // 64, does 4*P*H*Sq*Sk*d operations against 2*P*(2*Sq + 2*Sk)*H*d bytes:
 // 165 GFLOP (0.167 ms) against 255 MB (0.076 ms) at P = 32: operations.
 
+#include "attention_bwd_sm90.cuh"
 #include "attention_sm90.cuh"
 
 namespace {
@@ -47,6 +54,7 @@ struct StridedLoader {
   int n_keys;           // Sk
   int n_rows;           // Sq
   float scale_log2;
+  float* lse;           // (B, H, Sq) row log-sum-exp, or null
 
   __device__ const int* key_ids(int b) const {
     return ids == nullptr ? nullptr : ids + static_cast<long long>(b) * n_keys;
@@ -84,8 +92,8 @@ int encode_operand(CUtensorMap* map, const void* ptr, int batch, int seq, int he
 }
 
 template <int D>
-int run(const void* q, const void* k, const void* v, void* out, const void* kv_ids, int batch,
-        int sq, int sk, int num_heads, const long long (&st)[9], float scale,
+int run(const void* q, const void* k, const void* v, void* out, const void* kv_ids, float* lse,
+        int batch, int sq, int sk, int num_heads, const long long (&st)[9], float scale,
         cudaStream_t stream) {
   StridedLoader<D> ld;
   const long long w = static_cast<long long>(num_heads) * D;
@@ -101,6 +109,7 @@ int run(const void* q, const void* k, const void* v, void* out, const void* kv_i
   ld.n_keys = sk;
   ld.n_rows = sq;
   ld.scale_log2 = scale * 1.4426950408889634f;
+  ld.lse = lse;
   return launch(ld, (sq + kBlockM - 1) / kBlockM, num_heads, batch, stream);
 }
 
@@ -108,11 +117,13 @@ int run(const void* q, const void* k, const void* v, void* out, const void* kv_i
 
 // C entry point (bound with ctypes). Strides are in elements; the head dim
 // of q, k and v is contiguous. `kv_ids` is null or a (B, Sk) int32 array
-// (0 = real key). Launches on `stream` and returns cudaGetLastError() so a
-// refused launch is reported to the caller; a negative value is minus the
-// CUresult of a tensor map that failed to encode.
+// (0 = real key). `lse` is null or a (B, H, Sq) fp32 array that receives
+// each row's log-sum-exp (for the backward). Launches on `stream` and
+// returns cudaGetLastError() so a refused launch is reported to the caller;
+// a negative value is minus the CUresult of a tensor map that failed to
+// encode.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                                   const void* kv_ids, int batch, int sq, int sk,
+                                   const void* kv_ids, void* lse, int batch, int sq, int sk,
                                    int num_heads, int head_dim,
                                    long long q_sb, long long q_ss, long long q_sh,
                                    long long k_sb, long long k_ss, long long k_sh,
@@ -123,6 +134,48 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   }
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   const auto s = static_cast<cudaStream_t>(stream);
-  return head_dim == 64 ? run<64>(q, k, v, out, kv_ids, batch, sq, sk, num_heads, st, scale, s)
-                        : run<32>(q, k, v, out, kv_ids, batch, sq, sk, num_heads, st, scale, s);
+  float* l = static_cast<float*>(lse);
+  return head_dim == 64
+             ? run<64>(q, k, v, out, kv_ids, l, batch, sq, sk, num_heads, st, scale, s)
+             : run<32>(q, k, v, out, kv_ids, l, batch, sq, sk, num_heads, st, scale, s);
+}
+
+// The backward (attention_bwd_sm90.cuh): dq, dk and dv, fresh contiguous
+// (B, S, H, D) bf16 arrays, from q, k, v and the output's cotangent `dout`
+// read through their element strides, the forward's `lse` and
+// delta = rowsum(dout * out), both (B, H, Sq) fp32, and the forward's
+// `kv_ids`. Returns as the forward does.
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
+                                   const void* dout, const void* lse, const void* delta,
+                                   const void* kv_ids, void* dq, void* dk, void* dv, int batch,
+                                   int sq, int sk, int num_heads, int head_dim,
+                                   long long q_sb, long long q_ss, long long q_sh,
+                                   long long k_sb, long long k_ss, long long k_sh,
+                                   long long v_sb, long long v_ss, long long v_sh,
+                                   long long do_sb, long long do_ss, long long do_sh,
+                                   float scale, void* stream) {
+  if ((head_dim != 64 && head_dim != 32) || sq < 1 || sk < 1 || batch < 1 || num_heads < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  using attn_bwd::bf16;
+  const long long w = static_cast<long long>(num_heads) * head_dim;
+  attn_bwd::BwdParams p;
+  p.q = {static_cast<const bf16*>(q), q_sb, q_ss, q_sh};
+  p.k = {static_cast<const bf16*>(k), k_sb, k_ss, k_sh};
+  p.v = {static_cast<const bf16*>(v), v_sb, v_ss, v_sh};
+  p.dout = {static_cast<const bf16*>(dout), do_sb, do_ss, do_sh};
+  p.dq = {static_cast<bf16*>(dq), sq * w, w, head_dim};
+  p.dk = {static_cast<bf16*>(dk), sk * w, w, head_dim};
+  p.dv = {static_cast<bf16*>(dv), sk * w, w, head_dim};
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.kv_ids = static_cast<const int*>(kv_ids);
+  p.heads = num_heads;
+  p.sq = sq;
+  p.n_keys = sk;
+  p.n_kv_rows = sk;
+  p.scale = scale;
+  const auto s = static_cast<cudaStream_t>(stream);
+  return head_dim == 64 ? attn_bwd::launch_bwd<64>(p, batch, s)
+                        : attn_bwd::launch_bwd<32>(p, batch, s);
 }

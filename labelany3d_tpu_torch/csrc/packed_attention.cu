@@ -28,6 +28,12 @@
 //     leave at once, and the output map (W, Npad, B) is written in 64-row
 //     stores.
 //
+// Backward. The JAX package has no backward kernel for this one (its VJP is
+// XLA's over _packed_reference); packed_attention_bwd runs the dQ and dK/dV
+// kernels of attention_bwd_sm90.cuh (K2's backward) over the packed
+// tensor's column ranges, from the row log-sum-exp that the forward writes
+// when asked (`lse`).
+//
 // What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s). Every
 // query row, pad rows included, is computed and written, against the n_real
 // real keys: operations 4*B*H*Npad*n_real*d; bytes are Q read and the output
@@ -40,6 +46,7 @@
 //     -> 0.00061 ms against 1.11 MB -> 0.00033 ms: operations, at a size
 //     where the launch costs more than either.
 
+#include "attention_bwd_sm90.cuh"
 #include "attention_sm90.cuh"
 
 namespace {
@@ -56,6 +63,7 @@ struct PackedLoader {
   int n_rows;       // Npad
   int w;
   float scale_log2;
+  float* lse;       // (B, H, Npad) row log-sum-exp, or null
 
   __device__ const int* key_ids(int) const { return nullptr; }
   __device__ void prefetch() const {
@@ -76,7 +84,7 @@ struct PackedLoader {
 };
 
 template <int D>
-int run(const void* qkv, void* out, int batch, int n_pad, int num_heads, int n_real,
+int run(const void* qkv, void* out, float* lse, int batch, int n_pad, int num_heads, int n_real,
         float scale, cudaStream_t stream) {
   const int w = num_heads * D;
   PackedLoader<D> ld;
@@ -100,16 +108,18 @@ int run(const void* qkv, void* out, int batch, int n_pad, int num_heads, int n_r
   ld.n_rows = n_pad;
   ld.w = w;
   ld.scale_log2 = scale * 1.4426950408889634f;
+  ld.lse = lse;
   return launch(ld, (n_pad + kBlockM - 1) / kBlockM, num_heads, batch, stream);
 }
 
 }  // namespace
 
-// C entry point (bound with ctypes). Launches on `stream` and returns
-// cudaGetLastError() so a refused launch is reported to the caller; a
-// negative value is minus the CUresult of a tensor map that failed to
-// encode.
-extern "C" int packed_attention_fwd(const void* qkv, void* out, int batch, int n_pad,
+// C entry point (bound with ctypes). `lse` is null or a (B, H, Npad) fp32
+// array that receives each row's log-sum-exp (for the backward). Launches
+// on `stream` and returns cudaGetLastError() so a refused launch is
+// reported to the caller; a negative value is minus the CUresult of a
+// tensor map that failed to encode.
+extern "C" int packed_attention_fwd(const void* qkv, void* out, void* lse, int batch, int n_pad,
                                     int num_heads, int head_dim, int n_real, float scale,
                                     void* stream) {
   if ((head_dim != 64 && head_dim != 32) || n_pad % 64 != 0 || n_real < 1 || n_real > n_pad ||
@@ -117,6 +127,48 @@ extern "C" int packed_attention_fwd(const void* qkv, void* out, int batch, int n
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto st = static_cast<cudaStream_t>(stream);
-  return head_dim == 64 ? run<64>(qkv, out, batch, n_pad, num_heads, n_real, scale, st)
-                        : run<32>(qkv, out, batch, n_pad, num_heads, n_real, scale, st);
+  float* l = static_cast<float*>(lse);
+  return head_dim == 64 ? run<64>(qkv, out, l, batch, n_pad, num_heads, n_real, scale, st)
+                        : run<32>(qkv, out, l, batch, n_pad, num_heads, n_real, scale, st);
+}
+
+// The backward (attention_bwd_sm90.cuh): d`qkv` (B, Npad, 3W) bf16, its
+// column ranges [0, W), [W, 2W) and [2W, 3W) written by the dQ and the dK/dV
+// kernels in place (no concatenation), from the packed `qkv`, the output's
+// cotangent `dout` (B, Npad, W), the forward's `lse` and
+// delta = rowsum(dout * out), both (B, H, Npad) fp32. Keys >= n_real are
+// masked, and their dK and dV rows are written as zeros. Returns as
+// flash_attention_bwd does.
+extern "C" int packed_attention_bwd(const void* qkv, const void* dout, const void* lse,
+                                    const void* delta, void* dqkv, int batch, int n_pad,
+                                    int num_heads, int head_dim, int n_real, float scale,
+                                    void* stream) {
+  if ((head_dim != 64 && head_dim != 32) || n_real < 1 || n_real > n_pad || batch < 1 ||
+      num_heads < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  using attn_bwd::bf16;
+  const long long w = static_cast<long long>(num_heads) * head_dim;
+  const long long row = 3 * w;
+  const auto* in = static_cast<const bf16*>(qkv);
+  auto* out = static_cast<bf16*>(dqkv);
+  attn_bwd::BwdParams p;
+  p.q = {in, n_pad * row, row, head_dim};
+  p.k = {in + w, n_pad * row, row, head_dim};
+  p.v = {in + 2 * w, n_pad * row, row, head_dim};
+  p.dout = {static_cast<const bf16*>(dout), n_pad * w, w, head_dim};
+  p.dq = {out, n_pad * row, row, head_dim};
+  p.dk = {out + w, n_pad * row, row, head_dim};
+  p.dv = {out + 2 * w, n_pad * row, row, head_dim};
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.kv_ids = nullptr;
+  p.heads = num_heads;
+  p.sq = n_pad;
+  p.n_keys = n_real;
+  p.n_kv_rows = n_pad;
+  p.scale = scale;
+  const auto s = static_cast<cudaStream_t>(stream);
+  return head_dim == 64 ? attn_bwd::launch_bwd<64>(p, batch, s)
+                        : attn_bwd::launch_bwd<32>(p, batch, s);
 }

@@ -16,12 +16,17 @@ PyTorch version. There is no other fallback: a CUDA tensor a kernel does
 not take raises. Masked (pad) V rows never reach an output, whatever they
 hold.
 
-`packed_sdpa` is differentiable on every device: its backward
+Both are differentiable on every device. On the card the backward is K2's
+backward, the Pallas library's custom VJP (`_flash_attention_bwd_dkv` and
+`_flash_attention_bwd_dq`) as two hand-written kernels
+(`csrc/attention_bwd_sm90.cuh`: `flash_sdpa_backward_kernel` and
+`packed_sdpa_backward_kernel`), from the row log-sum-exp that the forward
+kernel writes when a gradient is wanted. On the CPU `flash_sdpa` is its
+plain version under autograd, and `packed_sdpa`'s backward
 (`packed_sdpa_backward`) recomputes the attention in fp32 from the saved
 qkv, as the JAX package's `_packed_bwd_rule` takes the VJP of its XLA
-reference. `flash_sdpa` is forward only on the card (the JAX package never
-differentiates it): called there with grad enabled on an input that
-requires grad, it raises rather than return an output cut from the graph.
+reference. `flash_sdpa_backward_reference` is the plain version of the two
+backward kernels, step by step.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 
 class LaunchCounter:
@@ -42,12 +48,14 @@ class LaunchCounter:
 
 
 # Launches of the CUDA kernel, and calls of the plain version; a run reads
-# them to show which path the model went through. K1's backward is plain
-# PyTorch on every device and has a count of its own, so that PLAIN_CALLS
-# still counts only forwards that left the kernel.
+# them to show which path the model went through. K1's plain backward (the
+# CPU's) has a count of its own, so that PLAIN_CALLS still counts only
+# forwards that left the kernel; PACKED_BACKWARD_LAUNCHES counts the
+# backward kernels' launches (the dQ and the dK/dV kernel, one pair a call).
 KERNEL_LAUNCHES = LaunchCounter()
 PLAIN_CALLS = LaunchCounter()
 BACKWARD_CALLS = LaunchCounter()
+PACKED_BACKWARD_LAUNCHES = LaunchCounter()
 
 _SOURCE = "packed_attention"
 # The head dims the kernels are built for (`attention_sm90.cuh`'s Tiles<D>):
@@ -92,16 +100,28 @@ def _lib():
     lib = build.load(_SOURCE)
     fn = lib.packed_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def packed_sdpa_kernel(qkv: torch.Tensor, num_heads: int, n_real: int) -> torch.Tensor:
+def _bwd_lib():
+    from labelany3d_tpu_torch.ops import build
+
+    fn = build.load(_SOURCE).packed_attention_bwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def packed_sdpa_kernel(qkv: torch.Tensor, num_heads: int, n_real: int, lse: bool = False):
     """Launch the CUDA kernel on PyTorch's current stream. The head dim is
-    checked first, so a call the kernel cannot take raises on any device."""
+    checked first, so a call the kernel cannot take raises on any device.
+    With `lse`, also returns each row's log-sum-exp, (B, H, Npad) fp32
+    (`packed_sdpa_lse_reference`), for the backward."""
     if qkv.dim() == 3 and qkv.shape[2] % (3 * num_heads) == 0:
         _check_head_dim(qkv.shape[2] // 3 // num_heads, "packed attention")
     if qkv.device.type != "cuda":
@@ -121,14 +141,98 @@ def packed_sdpa_kernel(qkv: torch.Tensor, num_heads: int, n_real: int) -> torch.
         raise ValueError(f"need Npad % 64 == 0 and 1 <= n_real <= Npad, got "
                          f"Npad={n_pad}, n_real={n_real}")
     out = torch.empty((b, n_pad, w), dtype=qkv.dtype, device=qkv.device)
+    rows = torch.empty((b, num_heads, n_pad), dtype=torch.float32,
+                       device=qkv.device) if lse else None
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib()(qkv.data_ptr(), out.data_ptr(), b, n_pad, num_heads, d,
-                     n_real, 1.0 / float(d) ** 0.5, stream)
+        err = _lib()(qkv.data_ptr(), out.data_ptr(), None if rows is None else rows.data_ptr(),
+                     b, n_pad, num_heads, d, n_real, 1.0 / float(d) ** 0.5, stream)
     if err:
         raise RuntimeError(f"packed attention kernel launch failed: CUDA error {err}")
     KERNEL_LAUNCHES.count += 1
-    return out
+    return (out, rows) if lse else out
+
+
+def packed_sdpa_lse_reference(qkv: torch.Tensor, num_heads: int, n_real: int) -> torch.Tensor:
+    """Plain version of the row log-sum-exp that `packed_sdpa_kernel(...,
+    lse=True)` writes: (B, H, Npad) fp32, keys >= n_real masked."""
+    b, n_pad, w3 = qkv.shape
+    q, k, _ = qkv.view(b, n_pad, 3, num_heads, w3 // 3 // num_heads).unbind(2)
+    ids = (torch.arange(n_pad, device=qkv.device) >= n_real).to(torch.int32).expand(b, n_pad)
+    return flash_sdpa_lse_reference(q, k, ids if n_real < n_pad else None)
+
+
+def _row_terms(out: torch.Tensor, grad_out: torch.Tensor, lse: torch.Tensor):
+    """The backward kernels' per-row inputs from (B, S, H, D) `out` and
+    `grad_out` and the forward's (B, H, S) `lse`: D = rowsum(grad_out * out)
+    in fp32 (as the library computes `di` in XLA), and LSE. A row whose
+    cotangent is zero adds nothing to any gradient in exact arithmetic: it
+    gets LSE = +inf and D = 0, which the kernels read as "takes no part", so
+    NaN in such a row (a pad row that feeds nothing) reaches no gradient."""
+    dead = (grad_out == 0).all(-1).transpose(1, 2)
+    delta = (out.float() * grad_out.float()).sum(-1).transpose(1, 2)
+    lse = lse.masked_fill(dead, float("inf")).contiguous()
+    return lse, delta.masked_fill(dead, 0.0).contiguous()
+
+
+def _readable(t: torch.Tensor) -> bool:
+    """Whether the K2 kernels read `t` in place: a contiguous head dim,
+    16-byte alignment and strides that are multiples of 8."""
+    return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+        s % 8 == 0 for s in t.stride()[:-1])
+
+
+def packed_sdpa_backward_kernel(qkv: torch.Tensor, out: torch.Tensor, grad_out: torch.Tensor,
+                                lse: torch.Tensor, num_heads: int, n_real: int) -> torch.Tensor:
+    """d`qkv` (B, Npad, 3W) of `packed_sdpa` on the card: the dQ and dK/dV
+    kernels (`csrc/attention_bwd_sm90.cuh`, K2's backward) over the packed
+    columns, from `qkv`, the forward's `out` and `lse` (`packed_sdpa_kernel(...,
+    lse=True)`) and the cotangent `grad_out` (B, Npad, W). P and dS are
+    rounded to bf16 before their products, as the JAX package's VJP rounds
+    them on bf16 operands. The head dim is checked first, so a call the
+    kernels cannot take raises on any device."""
+    if qkv.dim() == 3 and qkv.shape[2] % (3 * num_heads) == 0:
+        _check_head_dim(qkv.shape[2] // 3 // num_heads, "packed attention backward")
+    for name, t in (("qkv", qkv), ("out", out), ("grad_out", grad_out), ("lse", lse)):
+        if t.device.type != "cuda":
+            raise ValueError(f"packed attention backward kernel needs CUDA tensors, got {name} "
+                             f"on {t.device}")
+    for name, t in (("qkv", qkv), ("out", out), ("grad_out", grad_out)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"packed attention backward kernel takes bfloat16, got {name} "
+                             f"{t.dtype}")
+    if qkv.dim() != 3 or qkv.shape[2] % 3:
+        raise ValueError(f"qkv must be (B, Npad, 3W), got {tuple(qkv.shape)}")
+    b, n_pad, w3 = qkv.shape
+    w = w3 // 3
+    if w % num_heads:
+        raise ValueError(f"width {w} is not divisible by {num_heads} heads")
+    d = w // num_heads
+    if tuple(out.shape) != (b, n_pad, w) or tuple(grad_out.shape) != (b, n_pad, w):
+        raise ValueError(f"out and grad_out must be (B, Npad, W) = {(b, n_pad, w)}, got "
+                         f"{tuple(out.shape)} and {tuple(grad_out.shape)}")
+    if tuple(lse.shape) != (b, num_heads, n_pad) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 (B, H, Npad) = {(b, num_heads, n_pad)}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError("qkv must be contiguous and 16-byte aligned")
+    if not 1 <= n_real <= n_pad:
+        raise ValueError(f"need 1 <= n_real <= Npad, got Npad={n_pad}, n_real={n_real}")
+    grad_out = grad_out.contiguous()
+    if grad_out.data_ptr() % 16:
+        grad_out = grad_out.clone()
+    rows, delta = _row_terms(out.reshape(b, n_pad, num_heads, d),
+                             grad_out.view(b, n_pad, num_heads, d), lse)
+    dqkv = torch.empty_like(qkv)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_lib()(qkv.data_ptr(), grad_out.data_ptr(), rows.data_ptr(), delta.data_ptr(),
+                         dqkv.data_ptr(), b, n_pad, num_heads, d, n_real,
+                         1.0 / float(d) ** 0.5, stream)
+    if err:
+        raise RuntimeError(f"packed attention backward kernel launch failed: CUDA error {err}")
+    PACKED_BACKWARD_LAUNCHES.count += 1
+    return dqkv
 
 
 def packed_sdpa_backward(qkv: torch.Tensor, grad_out: torch.Tensor, num_heads: int,
@@ -181,36 +285,65 @@ def packed_sdpa_backward(qkv: torch.Tensor, grad_out: torch.Tensor, num_heads: i
 
 
 class _PackedSdpa(torch.autograd.Function):
-    """K1 forward (the kernel on CUDA, the plain version on the CPU) with
-    `packed_sdpa_backward` as its backward; saves `qkv`, the residual the
-    JAX package's `_packed_fwd_rule` keeps."""
+    """K1 with its backward. On the CPU: the plain forward, and
+    `packed_sdpa_backward` from the saved `qkv` (the residual the JAX
+    package's `_packed_fwd_rule` keeps). On the card: the kernel forward,
+    which also writes the row log-sum-exp, and the backward kernels from
+    the saved `qkv`, output and LSE (the output is saved by the projection
+    that reads it anyway)."""
 
     @staticmethod
     def forward(ctx, qkv, num_heads, n_real):
-        ctx.save_for_backward(qkv)
         ctx.num_heads, ctx.n_real = num_heads, n_real
-        if qkv.device.type == "cpu":
+        ctx.on_cpu = qkv.device.type == "cpu"
+        if ctx.on_cpu:
+            ctx.save_for_backward(qkv)
             return packed_sdpa_reference(qkv, num_heads, n_real)
-        return packed_sdpa_kernel(qkv, num_heads, n_real)
+        out, lse = packed_sdpa_kernel(qkv, num_heads, n_real, lse=True)
+        ctx.save_for_backward(qkv, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        (qkv,) = ctx.saved_tensors
-        return packed_sdpa_backward(qkv, grad_out, ctx.num_heads, ctx.n_real), None, None
+        if ctx.on_cpu:
+            (qkv,) = ctx.saved_tensors
+            return packed_sdpa_backward(qkv, grad_out, ctx.num_heads, ctx.n_real), None, None
+        return _packed_kernel_backward(ctx, grad_out), None, None
+
+
+@once_differentiable
+def _packed_kernel_backward(ctx, grad_out):
+    """The card's backward of `_PackedSdpa`: the kernels' gradient has no
+    graph of its own, so a double backward through it raises."""
+    qkv, out, lse = ctx.saved_tensors
+    return packed_sdpa_backward_kernel(qkv, out, grad_out.to(qkv.dtype), lse, ctx.num_heads,
+                                       ctx.n_real)
 
 
 def packed_sdpa(qkv: torch.Tensor, num_heads: int, n_real: int) -> torch.Tensor:
     """(B, Npad, 3W) packed qkv -> (B, Npad, W) attention output.
 
     CPU tensors take the plain version; CUDA tensors the kernel (or raise).
-    Differentiable on both (`packed_sdpa_backward`).
+    Differentiable on both: with grad enabled and `qkv` requiring grad it
+    goes through `_PackedSdpa` (the backward kernels on the card), else
+    straight to the forward.
     """
-    return _PackedSdpa.apply(qkv, num_heads, n_real)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _PackedSdpa.apply(qkv, num_heads, n_real)
+    if qkv.device.type == "cpu":
+        return packed_sdpa_reference(qkv, num_heads, n_real)
+    return packed_sdpa_kernel(qkv, num_heads, n_real)
 
 
-# K2: launches of csrc/flash_attention.cu and calls of its plain version.
+# K2: launches of csrc/flash_attention.cu and calls of its plain version;
+# launches of its backward kernels (the dQ and the dK/dV kernel, one pair a
+# call).
 FLASH_LAUNCHES = LaunchCounter()
 FLASH_PLAIN_CALLS = LaunchCounter()
+FLASH_BACKWARD_LAUNCHES = LaunchCounter()
+# Score elements of one chunk of heads in the plain backward and LSE
+# (1 GB in fp32), so that a long sequence's scores fit on the card.
+_SCORE_CHUNK_ELEMENTS = 1 << 28
 
 
 def _key_mask(segment_ids: torch.Tensor | None, q: torch.Tensor, k: torch.Tensor):
@@ -245,54 +378,219 @@ def flash_sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2).to(q.dtype)
 
 
+def _head_chunks(b: int, sq: int, sk: int, heads: int):
+    """Slices of heads whose (B, h, Sq, Sk) fp32 scores stay within
+    `_SCORE_CHUNK_ELEMENTS`."""
+    step = max(1, _SCORE_CHUNK_ELEMENTS // max(1, b * sq * sk))
+    return [slice(h0, min(h0 + step, heads)) for h0 in range(0, heads, step)]
+
+
+def flash_sdpa_lse_reference(q: torch.Tensor, k: torch.Tensor,
+                             segment_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of the row log-sum-exp the forward kernels write for
+    the backward: (B, H, Sq) fp32, log(sum_k exp(q.k / sqrt(d))) over the
+    unmasked keys in natural-log units (the Pallas library's m + log(l));
+    +inf for a row whose keys are all masked."""
+    keep = _key_mask(segment_ids, q, k)
+    b, sq, heads, d = q.shape
+    out = torch.empty((b, heads, sq), dtype=torch.float32, device=q.device)
+    for hs in _head_chunks(b, sq, k.shape[1], heads):
+        qf, kf = (t[:, :, hs].float().transpose(1, 2) for t in (q, k))
+        s = torch.matmul(qf, kf.transpose(-1, -2)) * (1.0 / float(d) ** 0.5)
+        if keep is not None:
+            s = s.masked_fill(~keep[:, None, None, :], float("-inf"))
+        lse = torch.logsumexp(s, dim=-1)
+        out[:, hs] = lse.masked_fill(lse == float("-inf"), float("inf"))
+    return out
+
+
+def flash_sdpa_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  out: torch.Tensor, lse: torch.Tensor,
+                                  grad_out: torch.Tensor,
+                                  segment_ids: torch.Tensor | None = None):
+    """Plain version of K2's two backward kernels: (dq, dk, dv) in the
+    inputs' dtypes from q (B, Sq, H, D), k, v (B, Sk, H, D), the forward's
+    `out` and `lse` (B, H, Sq) and the cotangent `grad_out`, step by step
+    in the arithmetic of the Pallas library's `mha_reference_bwd` in fp32:
+    P = exp(S - LSE), dV = P^T dO, dP = dO V^T, D = rowsum(O o dO),
+    dS = (dP - D) o P, dK = dS^T Q, dQ = dS K (both times the scale).
+    Masked keys are zeroed in K and V and their P is 0 (so NaN in a masked
+    V row reaches nothing); a query row whose cotangent is zero takes no
+    part (`_row_terms`). Chunked over heads so long sequences fit."""
+    keep = _key_mask(segment_ids, q, k)
+    b, sq, heads, d = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / float(d) ** 0.5
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    for hs in _head_chunks(b, sq, sk, heads):
+        qf, kf, vf, of, gf = (t[:, :, hs].float().transpose(1, 2)  # (B, h, S, D)
+                              for t in (q, k, v, out, grad_out))
+        live = (gf != 0).any(-1, keepdim=True)                    # (B, h, Sq, 1)
+        zero = torch.zeros((), device=q.device)
+        qf = torch.where(live, qf, zero)
+        rows = torch.where(live, lse[:, hs, :, None], torch.full((), float("inf"),
+                                                                 device=q.device))
+        if keep is not None:
+            kk = keep[:, None, :, None]
+            kf, vf = torch.where(kk, kf, zero), torch.where(kk, vf, zero)
+        p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale - rows)
+        if keep is not None:
+            p = torch.where(keep[:, None, None, :], p, zero)
+        dv_h = torch.matmul(p.transpose(-1, -2), gf)
+        dp = torch.matmul(gf, vf.transpose(-1, -2))
+        di = torch.where(live, (of * gf).sum(-1, keepdim=True), zero)
+        ds = (dp - di) * p
+        del dp, p
+        dk[:, :, hs] = (torch.matmul(ds.transpose(-1, -2), qf) * scale).transpose(1, 2).to(k.dtype)
+        dq[:, :, hs] = (torch.matmul(ds, kf) * scale).transpose(1, 2).to(q.dtype)
+        dv[:, :, hs] = dv_h.transpose(1, 2).to(v.dtype)
+    return dq, dk, dv
+
+
 def _flash_lib():
     from labelany3d_tpu_torch.ops import build
 
     fn = build.load("flash_attention").flash_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
+def _flash_bwd_lib():
+    from labelany3d_tpu_torch.ops import build
+
+    fn = build.load("flash_attention").flash_attention_bwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] * 12
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_strided(named, kernel: str) -> None:
+    """The layout the K2 kernels read through strides: CUDA, bf16, 4-D, a
+    contiguous head dim, 16-byte alignment, strides that are multiples of 8."""
+    for name, t in named:
+        if t.device.type != "cuda":
+            raise ValueError(f"{kernel} kernel needs CUDA tensors, got {name} on {t.device}")
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{kernel} kernel takes bfloat16, got {name} {t.dtype}")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be (B, S, H, D), got {tuple(t.shape)}")
+        if not _readable(t):
+            raise ValueError(f"{name} needs a contiguous head dim, 16-byte alignment and "
+                             f"strides that are multiples of 8, got {t.stride()}")
+
+
+def _key_ids(segment_ids, q, k):
+    keep = _key_mask(segment_ids, q, k)
+    return None if keep is None else (~keep).to(torch.int32).contiguous()
+
+
 def flash_sdpa_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      segment_ids: torch.Tensor | None = None) -> torch.Tensor:
+                      segment_ids: torch.Tensor | None = None, lse: bool = False):
     """Launch the CUDA kernel on PyTorch's current stream. q, k and v are
     read in place through their strides; the head dim must be contiguous
     (and is checked first, so a call the kernel cannot take raises on any
-    device)."""
+    device). With `lse`, also returns each row's log-sum-exp, (B, H, Sq)
+    fp32 (`flash_sdpa_lse_reference`), for the backward."""
     _check_head_dim(q.shape[-1], "flash attention")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda":
-            raise ValueError(f"flash attention kernel needs CUDA tensors, got {name} on "
-                             f"{t.device}")
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"flash attention kernel takes bfloat16, got {name} {t.dtype}")
-        if t.dim() != 4:
-            raise ValueError(f"{name} must be (B, S, H, D), got {tuple(t.shape)}")
-        if (t.stride(3) != 1 or t.data_ptr() % 16
-                or any(s % 8 for s in t.stride()[:3])):
-            raise ValueError(f"{name} needs a contiguous head dim, 16-byte alignment and "
-                             f"strides that are multiples of 8, got {t.stride()}")
+    _check_strided((("q", q), ("k", k), ("v", v)), "flash attention")
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if k.shape != (b, sk, h, d) or v.shape != k.shape:
         raise ValueError(f"k and v must be (B, Sk, H, D) = {(b, sk, h, d)}, got "
                          f"{tuple(k.shape)} and {tuple(v.shape)}")
-    keep = _key_mask(segment_ids, q, k)
-    ids = None if keep is None else (~keep).to(torch.int32).contiguous()
+    ids = _key_ids(segment_ids, q, k)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    rows = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _flash_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                           None if ids is None else ids.data_ptr(), b, sq, sk, h, d,
+                           None if ids is None else ids.data_ptr(),
+                           None if rows is None else rows.data_ptr(), b, sq, sk, h, d,
                            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                            1.0 / float(d) ** 0.5, stream)
     if err:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err}")
     FLASH_LAUNCHES.count += 1
-    return out
+    return (out, rows) if lse else out
+
+
+def flash_sdpa_backward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               out: torch.Tensor, lse: torch.Tensor, grad_out: torch.Tensor,
+                               segment_ids: torch.Tensor | None = None):
+    """(dq, dk, dv) of `flash_sdpa` on the card: the dQ and dK/dV kernels
+    (`csrc/attention_bwd_sm90.cuh`), the Pallas library's
+    `_flash_attention_bwd_dq` and `_flash_attention_bwd_dkv`. q, k, v and
+    `grad_out` are read through their strides (as the forward reads q, k
+    and v: column views and broadcast operands included); `out` and `lse`
+    are the forward's (`flash_sdpa_kernel(..., lse=True)`). Returns fresh
+    contiguous gradients of q's, k's and v's shapes (autograd sums those
+    of broadcast operands). The head dim is checked first, so a call the
+    kernels cannot take raises on any device."""
+    _check_head_dim(q.shape[-1], "flash attention backward")
+    _check_strided((("q", q), ("k", k), ("v", v), ("grad_out", grad_out)),
+                   "flash attention backward")
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if k.shape != (b, sk, h, d) or v.shape != k.shape:
+        raise ValueError(f"k and v must be (B, Sk, H, D) = {(b, sk, h, d)}, got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if out.shape != q.shape or grad_out.shape != q.shape:
+        raise ValueError(f"out and grad_out must be (B, Sq, H, D) = {tuple(q.shape)}, got "
+                         f"{tuple(out.shape)} and {tuple(grad_out.shape)}")
+    if tuple(lse.shape) != (b, h, sq) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"lse must be float32 (B, H, Sq) = {(b, h, sq)} on {q.device}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    ids = _key_ids(segment_ids, q, k)
+    rows, delta = _row_terms(out, grad_out, lse)
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=v.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _flash_bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), grad_out.data_ptr(),
+                               rows.data_ptr(), delta.data_ptr(),
+                               None if ids is None else ids.data_ptr(), dq.data_ptr(),
+                               dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, d,
+                               *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                               *grad_out.stride()[:3], 1.0 / float(d) ** 0.5, stream)
+    if err:
+        raise RuntimeError(f"flash attention backward kernel launch failed: CUDA error {err}")
+    FLASH_BACKWARD_LAUNCHES.count += 1
+    return dq, dk, dv
+
+
+class _FlashSdpa(torch.autograd.Function):
+    """K2 on the card with its backward kernels. The forward asks the
+    kernel for the row log-sum-exp only when a gradient is wanted, and then
+    saves q, k, v, the output and the LSE (the residuals the library's
+    `_flash_attention_fwd` keeps, less its m and l, which the LSE
+    replaces)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids):
+        if not any(ctx.needs_input_grad[:3]):
+            return flash_sdpa_kernel(q, k, v, segment_ids)
+        out, lse = flash_sdpa_kernel(q, k, v, segment_ids, lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, segment_ids)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        q, k, v, out, lse, segment_ids = ctx.saved_tensors
+        g = grad_out.to(q.dtype)
+        if not _readable(g):
+            g = g.contiguous()
+        dq, dk, dv = flash_sdpa_backward_kernel(q, k, v, out, lse, g, segment_ids)
+        return dq, dk, dv, None
 
 
 def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -300,15 +598,13 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(B, Sq, H, D) q against (B, Sk, H, D) k, v -> (B, Sq, H, D).
 
     `segment_ids` (B, S) int, 0 = real token: masks keys of a
-    self-attention. CPU tensors take the plain version; CUDA tensors the
-    kernel (or raise). The kernel has no backward: on CUDA tensors with grad
-    enabled and an input that requires grad, this raises."""
+    self-attention. CPU tensors take the plain version (differentiable by
+    autograd); CUDA tensors the kernel (or raise), and with grad enabled
+    and an input that requires grad, `_FlashSdpa` (the backward kernels)."""
     if q.device.type == "cpu":
         return flash_sdpa_reference(q, k, v, segment_ids)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(
-            "flash_sdpa has no backward on the card (K2's backward is not ported); call "
-            "it under torch.no_grad() or torch.inference_mode(), or on CPU tensors")
+        return _FlashSdpa.apply(q, k, v, segment_ids)
     return flash_sdpa_kernel(q, k, v, segment_ids)
 
 

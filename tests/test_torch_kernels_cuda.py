@@ -7,11 +7,12 @@ machine without it; `tests/conftest.py` imports JAX, hence:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest -q
 
 Attention tolerances, against an fp32 plain version on the same bf16 inputs: 5e-3
-absolute and 5e-3 relative L2 (||out - ref|| / ||ref||); K1's gradient
-5e-3 relative L2 and 1e-2 of the largest gradient absolute. The output is
-rounded to bf16 (relative 2^-9) and so is P before the PV product; a wrong
-key tile (the last partial tile dropped, or its pad keys unmasked) moves
-the output by a few percent of its scale.
+absolute and 5e-3 relative L2 (||out - ref|| / ||ref||); the gradients
+(K1's and K2's backward kernels) 5e-3 relative L2 and 1e-2 of the largest
+gradient absolute. The output is rounded to bf16 (relative 2^-9) and so is
+P before the PV product (and P and dS before the backward's products); a
+wrong key tile (the last partial tile dropped, or its pad keys unmasked)
+moves the output by a few percent of its scale.
 """
 
 import pytest
@@ -77,13 +78,26 @@ def _cuda_or_skip():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
 
 
-# K1's d`qkv` on the card (kernel forward, plain fp32 backward, rounded to
-# bf16) against the fp32 plain version's autograd gradient from the same
-# bf16 qkv and a bf16-exact cotangent: the bf16 rounding of the result puts
-# the relative L2 error near 1e-3; a gradient cut off at the attention
-# output would be 1.0.
+# K1's d`qkv` and K2's dq, dk, dv on the card (kernel forward, backward
+# kernels: P and dS rounded to bf16 before their products, the result
+# rounded to bf16) against the fp32 plain version's autograd gradient from
+# the same bf16 inputs and a bf16-exact cotangent: the roundings put the
+# relative L2 error near 2.4e-3; a gradient cut off at the attention output
+# would be 1.0.
 GRAD_REL_TOL = 5e-3
 GRAD_MAX_ABS_TOL = 1e-2   # times the largest |gradient|
+
+
+def _grad_close(got, want):
+    got = got.float()
+    assert torch.isfinite(got).all()
+    if not want.any():
+        # A gradient that is zero in exact arithmetic (dq and dk with one
+        # key: P = 1, so dS = dP - D = 0): rounding noise only.
+        assert got.abs().max().item() <= 1e-5
+        return
+    assert ((got - want).norm() / want.norm()).item() <= GRAD_REL_TOL
+    assert (got - want).abs().max().item() <= GRAD_MAX_ABS_TOL * want.abs().max().item()
 
 
 @pytest.mark.cuda
@@ -99,15 +113,16 @@ def test_packed_attention_is_differentiable_on_the_card(b, n_pad, n_real):
     cot[:, n_real:] = 0.0  # pad rows feed nothing downstream, as in the ViT
     qkv = base.clone().requires_grad_()
     launches, backward = port.KERNEL_LAUNCHES.count, port.BACKWARD_CALLS.count
+    kernels = port.PACKED_BACKWARD_LAUNCHES.count
     out = port.packed_sdpa(qkv, 16, n_real)
     assert out.grad_fn is not None and port.KERNEL_LAUNCHES.count == launches + 1
     (out.float() * cot).sum().backward()
-    assert port.BACKWARD_CALLS.count == backward + 1
+    # The backward kernels, never the plain backward.
+    assert port.PACKED_BACKWARD_LAUNCHES.count == kernels + 1
+    assert port.BACKWARD_CALLS.count == backward
     ref = base.float().requires_grad_()
     (port.packed_sdpa_reference(ref, 16, n_real) * cot).sum().backward()
-    got, want = qkv.grad.float(), ref.grad
-    assert ((got - want).norm() / want.norm()).item() <= GRAD_REL_TOL
-    assert (got - want).abs().max().item() <= GRAD_MAX_ABS_TOL * want.abs().max().item()
+    _grad_close(qkv.grad, ref.grad)
     nan = base.clone()
     nan[:, n_real:] = float("nan")
     nan.requires_grad_()
@@ -117,16 +132,140 @@ def test_packed_attention_is_differentiable_on_the_card(b, n_pad, n_real):
 
 
 @pytest.mark.cuda
-def test_flash_attention_raises_under_grad_on_the_card():
-    """K2 has no backward: with grad enabled and an input that requires
-    grad it raises, rather than return an output cut from the graph."""
+def test_packed_attention_backward_kernel_at_the_train_shape():
+    """MoGe ViT-L's train shape, (8, 1408, 3072) with 1370 real tokens,
+    NaN in the pad V rows and a cotangent on every row."""
+    _cuda_or_skip()
+    b, n_pad, n_real, heads, w = 8, 1408, 1370, 16, 1024
+    g = torch.Generator(device="cuda").manual_seed(6)
+    base = torch.randn(b, n_pad, 3 * w, device="cuda", generator=g).bfloat16()
+    base[:, n_real:, 2 * w:] = float("nan")
+    cot = torch.randn(b, n_pad, w, device="cuda", generator=g).bfloat16()
+    qkv = base.clone().requires_grad_()
+    port.packed_sdpa(qkv, heads, n_real).backward(cot)
+    ref = base.float().requires_grad_()
+    port.packed_sdpa_reference(ref, heads, n_real).backward(cot.float())
+    _grad_close(qkv.grad, ref.grad)
+    out, lse = port.packed_sdpa_kernel(base, heads, n_real, lse=True)
+    want = port.packed_sdpa_lse_reference(base.float(), heads, n_real)
+    assert (lse - want).abs().max().item() <= 1e-4
+    # No atomics: the backward repeats bit for bit.
+    once = port.packed_sdpa_backward_kernel(base, out, cot, lse, heads, n_real)
+    assert torch.equal(once, port.packed_sdpa_backward_kernel(base, out, cot, lse, heads, n_real))
+
+
+def _flash_grad_check(q, k, v, seg=None):
+    """K2 under autograd on the card (the kernel forward with its LSE, the
+    backward kernels) against the fp32 plain version's autograd gradients
+    from the same bf16 inputs and a bf16-exact cotangent."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    cot = torch.randn(q.shape, device="cuda", generator=g).bfloat16()
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    launches = port.FLASH_BACKWARD_LAUNCHES.count
+    out = port.flash_sdpa(*leaves, seg)
+    assert out.grad_fn is not None
+    out.backward(cot)
+    assert port.FLASH_BACKWARD_LAUNCHES.count == launches + 1
+    refs = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    port.flash_sdpa_reference(*refs, seg).backward(cot.float())
+    for got, want in zip(leaves, refs):
+        _grad_close(got.grad, want.grad)
+    return leaves
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,heads,d,masked,strided", [
+    (4, 1296, 1296, 12, 64, None, False),         # the matcher decoder's self-attention
+    (2, 1296, 777, 12, 64, None, True),           # cross shape, q read through strides
+    (2, 1024, 1024, 16, 64, (923, 1024), False),  # a padded rope encoder's segment ids
+    (1, 5, 67, 12, 64, None, False),              # one partial tile each way
+    (2, 1, 300, 2, 64, None, False),              # Sq = 1
+    (2, 300, 1, 2, 64, None, False),              # Sk = 1
+    (1, 1024, 1024, 2, 32, None, False),          # the elevation decoder, head dim 32
+    (2, 300, 300, 2, 32, (250, 300), False),      # head dim 32 with segment ids
+    (2, 4096, 1374, 16, 64, None, False),         # TRELLIS SS cross (a ragged key tile)
+])
+def test_flash_attention_backward_kernel_matches_plain(b, sq, sk, heads, d, masked, strided):
+    """`masked` = (lo, hi): keys lo..hi-1 carry a non-zero segment id and
+    their V rows hold NaN."""
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(8)
+
+    def rand(s):
+        return torch.randn(b, s, heads, d, device="cuda", generator=g).bfloat16()
+
+    q, k, v = rand(sq), rand(sk), rand(sk)
+    if strided:
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    seg = None
+    if masked:
+        seg = torch.zeros(b, sk, dtype=torch.int32, device="cuda")
+        seg[:, masked[0]:masked[1]] = 1
+        v[:, masked[0]:masked[1]] = float("nan")
+    _flash_grad_check(q, k, v, seg)
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_reads_fused_qkv_columns():
+    """SVRM's encoder and the rope ViT read q, k and v as column views of
+    one (B, S, 3W) projection; the backward reads them in place too."""
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    qkv = torch.randn(7, 1297, 3 * 768, device="cuda", generator=g).bfloat16()
+    q, k, v = (qkv[..., i * 768:(i + 1) * 768].unflatten(-1, (12, 64)) for i in range(3))
+    _flash_grad_check(q, k, v)
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_takes_broadcast_operands():
+    """k and v broadcast over the batch (stride 0): the kernels write one
+    gradient a batch and autograd sums them into the broadcast leaves."""
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(10)
+    q = torch.randn(3, 200, 1, 64, device="cuda", generator=g).bfloat16().requires_grad_()
+    k, v = (torch.randn(1, 150, 1, 64, device="cuda", generator=g).bfloat16().requires_grad_()
+            for _ in range(2))
+    cot = torch.randn(3, 200, 1, 64, device="cuda", generator=g).bfloat16()
+    port.flash_sdpa(q, k.expand(3, -1, -1, -1), v.expand(3, -1, -1, -1)).backward(cot)
+    refs = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    port.flash_sdpa_reference(refs[0], refs[1].expand(3, -1, -1, -1),
+                              refs[2].expand(3, -1, -1, -1)).backward(cot.float())
+    for got, want in zip((q, k, v), refs):
+        assert got.grad.shape == want.shape
+        _grad_close(got.grad, want.grad)
+
+
+@pytest.mark.cuda
+def test_attention_backward_kernels_refuse_a_double_backward():
+    """The kernels' gradients have no graph of their own: differentiating
+    them again raises rather than return a wrong second derivative."""
+    _cuda_or_skip()
+    q, k, v = (torch.randn(1, 128, 2, 64, device="cuda").bfloat16().requires_grad_()
+               for _ in range(3))
+    (dq,) = torch.autograd.grad(port.flash_sdpa(q, k, v).float().square().sum(), q,
+                                create_graph=True)
+    with pytest.raises(RuntimeError, match="twice"):
+        dq.float().sum().backward()
+    qkv = torch.randn(1, 128, 3 * 128, device="cuda").bfloat16().requires_grad_()
+    (g,) = torch.autograd.grad(port.packed_sdpa(qkv, 2, 100).float().square().sum(), qkv,
+                               create_graph=True)
+    with pytest.raises(RuntimeError, match="twice"):
+        g.float().sum().backward()
+
+
+@pytest.mark.cuda
+def test_flash_attention_forward_only_without_grad():
+    """Without grad (or with nothing that requires it) `flash_sdpa` is the
+    forward kernel alone: no LSE, no autograd node, the same output."""
     _cuda_or_skip()
     q, k, v = (torch.randn(1, 128, 12, 64, device="cuda").bfloat16() for _ in range(3))
-    out = port.flash_sdpa(q, k, v)  # nothing requires grad
+    out = port.flash_sdpa(q, k, v)
+    assert out.grad_fn is None
     with torch.no_grad():
         assert torch.equal(port.flash_sdpa(q, k, v.requires_grad_()), out)
-    with pytest.raises(RuntimeError, match="no backward"):
-        port.flash_sdpa(q, k, v)
+    assert torch.equal(port.flash_sdpa(q, k, v).detach(), out)
+    _, lse = port.flash_sdpa_kernel(q, k, v, lse=True)
+    assert (lse - port.flash_sdpa_lse_reference(q.float(), k.float())).abs().max() <= 1e-4
 
 
 @pytest.mark.cuda
