@@ -112,6 +112,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import struct
 import subprocess
@@ -399,17 +400,18 @@ def _grad_errors(got, want) -> dict:
 
 
 def check_flash_grad(b: int, sq: int, sk: int, seed: int, heads: int = 16, d: int = 64,
-                     pad_keys: int = 0, nan_v: bool = False, fused: bool = False,
-                     timed: bool = False) -> dict:
+                     pad_keys: int = 0, hole: tuple | None = None, nan_v: bool = False,
+                     nan_k: bool = False, fused: bool = False, timed: bool = False) -> dict:
     """K2 under autograd on the card (the forward kernel with its LSE, then
     the dQ and dK/dV kernels) against `flash_sdpa_backward_reference` from
     the same bf16 inputs. `pad_keys` > 0 masks the last keys by segment ids
-    (self-attention); `nan_v` fills their V rows with NaN; `fused` reads q,
-    k and v as column views of one (B, S, 3 * H * D) tensor (SVRM's encoder,
-    the rope ViT). With `timed`: the backward's time (both kernels and the
-    row terms before them), each kernel's device time in a trace of such
-    calls, the plain version's, SDPA's backward under the same mask, and
-    the bounds."""
+    (self-attention), `hole` = (lo, hi) the keys lo .. hi - 1; `nan_v` and
+    `nan_k` fill the masked keys' V and K rows with NaN; `fused` reads q, k
+    and v as column views of one (B, S, 3 * H * D) tensor (SVRM's encoder,
+    the rope ViT). With `timed`: the backward's time (the two kernels, the
+    dQ kernel's prologue computing the row terms), each kernel's device
+    time in a trace of such calls (and any other kernel there), the plain
+    version's, SDPA's backward under the same mask, and the bounds."""
     import torch
     import torch.nn.functional as F
 
@@ -424,11 +426,14 @@ def check_flash_grad(b: int, sq: int, sk: int, seed: int, heads: int = 16, d: in
         q, k, v = (torch.randn(b, s, heads, d, device="cuda", generator=g).bfloat16()
                    for s in (sq, sk, sk))
     seg = None
-    if pad_keys:
+    masked = slice(sk - pad_keys, sk) if pad_keys else (slice(*hole) if hole else None)
+    if masked is not None:
         seg = torch.zeros(b, sk, dtype=torch.int32, device="cuda")
-        seg[:, sk - pad_keys:] = 1
+        seg[:, masked] = 1
         if nan_v:
-            v[:, sk - pad_keys:] = float("nan")
+            v[:, masked] = float("nan")
+        if nan_k:
+            k[:, masked] = float("nan")
     cot = torch.randn(b, sq, heads, d, device="cuda", generator=g).bfloat16()
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     launches = att.FLASH_BACKWARD_LAUNCHES.count
@@ -458,7 +463,7 @@ def check_flash_grad(b: int, sq: int, sk: int, seed: int, heads: int = 16, d: in
         go = cot.transpose(1, 2)
         res["library_ms"] = time_cuda(
             lambda: torch.autograd.grad(sdpa, (qt, kt, vt), go, retain_graph=True))
-        sk_real = sk - pad_keys
+        sk_real = sk - (0 if masked is None else masked.stop - masked.start)
         res["bound_ms"], res["bound_by"] = backward_bound_ms(b, sq, sk_real, heads, d)
         res["dq_bound_ms"], res["dq_bound_by"] = backward_bound_ms(b, sq, sk_real, heads, d,
                                                                    "dq")
@@ -1053,12 +1058,67 @@ def cuobjdump() -> str | None:
     return next((c for c in candidates if c and os.path.exists(c)), None)
 
 
-def sass_opcodes(library: Path, tool: str) -> dict:
-    """How often each opcode of SASS_REQUIRED (and TMA stores) appears in a
-    built library's SASS."""
-    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+def sass_dump(library: Path, tool: str) -> str:
+    """A built library's SASS (cuobjdump -sass)."""
+    return subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
                           timeout=120, check=True).stdout
+
+
+def sass_opcodes(sass: str) -> dict:
+    """How often each opcode of SASS_REQUIRED (and TMA stores) appears in a
+    library's SASS."""
     return {op: sass.count(op) for op in (*SASS_REQUIRED, "UTMASTG")}
+
+
+# The backward kernels (attention_bwd_sm90.cuh), checked function by
+# function, since the forward kernels in the same library have HGMMA and
+# UTMALDG too: each instance of dq_kernel and dkdv_kernel must hold both,
+# and no mma.sync (HMMA) and no atomics (RED, ATOM, ATOMS, ATOMG).
+BWD_FUNCTIONS = ("dq_kernel", "dkdv_kernel")
+BWD_FORBIDDEN = ("HMMA", "RED", "ATOM", "ATOMS", "ATOMG")
+
+
+def sass_by_function(sass: str, names=BWD_FUNCTIONS) -> dict:
+    """{kernel name + its head dim: {opcode: count}} for every function of a
+    library's SASS whose mangled name holds one of `names`; opcodes are the
+    instructions' first word without modifiers."""
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        mangled = part.split("\n", 1)[0].strip()
+        name = next((n for n in names if n in mangled), None)
+        if name is None:
+            continue
+        dim = re.search(r"LoaderILi(\d+)EE", mangled)
+        ops: dict[str, int] = {}
+        for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)",
+                             part):
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+        out[f"{name}<{dim.group(1) if dim else '?'}>"] = {
+            op: ops.get(op, 0) for op in (*SASS_REQUIRED, "UTMASTG", *BWD_FORBIDDEN)}
+    return out
+
+
+def ptxas_by_function(log: str, names=BWD_FUNCTIONS) -> dict:
+    """{kernel name + its head dim: "N registers, S bytes spill stores, L
+    bytes spill loads"} from an nvcc -Xptxas -v log."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = next((n for n in names if n in m.group(1)), None)
+            dim = re.search(r"LoaderILi(\d+)EE", m.group(1))
+            fn = None if name is None else f"{name}<{dim.group(1) if dim else '?'}>"
+            continue
+        if fn is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if spill:
+            out[fn] = f"{spill.group(1)} bytes spill stores, {spill.group(2)} bytes spill loads"
+        regs = re.search(r"Used (\d+) registers", ln)
+        if regs:
+            out[fn] = f"{regs.group(1)} registers, " + out.get(fn, "")
+            fn = None
+    return out
 
 
 def device_events(prof) -> list[tuple[float, str, int]]:
@@ -1114,24 +1174,35 @@ def profile_pass(run, host: bool = True) -> dict:
     return out
 
 
-def backward_kernel_ms(run, iters: int = 20, warmup: int = 3) -> dict:
+def backward_kernel_ms(run, iters: int = 20, warmup: int = 3, min_ms: float = 60.0) -> dict:
     """Each backward kernel's mean device time (`dq_ms`, `dkdv_ms`) over
-    its events in one device-only trace of `iters` calls of `run`, a whole
-    backward (both kernels), after `warmup` untraced calls. The trace may
-    drop a few of the last events, so the mean is over the events it kept
-    (`dq_events`, `dkdv_events`); it fails if it kept none of a kernel."""
+    its events in one device-only trace of whole backward calls of `run`
+    (both kernels), after `warmup` untraced calls, and every other kernel in
+    that trace (`other_kernels`: (name, events); none when the call is the
+    two kernels alone). The trace takes `iters` calls, or more, up to
+    `min_ms` of device time: late in a run a trace can lose the events of
+    its last calls (17(a) kept 14 of 20 calls at 1.6 ms a call in one run,
+    none of 20 at 0.5 ms in another). The mean is over the events it kept
+    (`dq_events`, `dkdv_events`); a trace that kept none of a kernel is
+    taken again, four times as long, and then it fails."""
     import torch
 
     for _ in range(warmup):
         run()
     torch.cuda.synchronize()
-    p = profile_pass(lambda: [run() for _ in range(iters)], host=False)
+    n = max(iters, int(min_ms / max(time_cuda(run, iters=5, warmup=0), 1e-3)) + 1)
+    p = profile_pass(lambda: [run() for _ in range(n)], host=False)
     if not p["bwd_dq_events"] or not p["bwd_dkdv_events"]:
-        raise RuntimeError(f"{iters} backward calls traced {p['bwd_dq_events']} dQ and "
+        n *= 4  # once more, four times as long, before giving up
+        p = profile_pass(lambda: [run() for _ in range(n)], host=False)
+    if not p["bwd_dq_events"] or not p["bwd_dkdv_events"]:
+        raise RuntimeError(f"{n} backward calls traced {p['bwd_dq_events']} dQ and "
                            f"{p['bwd_dkdv_events']} dK/dV kernels")
+    others = [(name, n) for _, name, n in p["top_device"]
+              if PROFILE_NAMES["bwd_dq"] not in name and PROFILE_NAMES["bwd_dkdv"] not in name]
     return {"dq_ms": p["bwd_dq_ms"] / p["bwd_dq_events"], "dq_events": p["bwd_dq_events"],
             "dkdv_ms": p["bwd_dkdv_ms"] / p["bwd_dkdv_events"],
-            "dkdv_events": p["bwd_dkdv_events"]}
+            "dkdv_events": p["bwd_dkdv_events"], "traced_calls": n, "other_kernels": others}
 
 
 def check_registration_outputs(save_dir: str, loader) -> tuple:
@@ -1535,8 +1606,9 @@ def kernel_checks() -> dict:
     # (the rope ViT's backward), the TRELLIS SLat torso with 1024 keys
     # masked by segment ids (and again with NaN in their V rows), the SS
     # flow's cross-attention (a ragged last key tile), SVRM's encoder read
-    # as column views of its fused projection, and the elevation decoder
-    # at head dim 32.
+    # as column views of its fused projection, the elevation decoder at
+    # head dim 32, and a whole key tile masked mid-sequence with NaN in its
+    # K and V rows (the dQ kernel skips it; the dK/dV kernel writes zeros).
     k2_bwd = {"rope_encoder": check_flash_grad(36, 1024, 1024, seed=60, timed=True),
               "trellis_slat_self": check_flash_grad(2, 8192, 8192, seed=61, pad_keys=1024,
                                                     timed=True),
@@ -1546,7 +1618,9 @@ def kernel_checks() -> dict:
               "svrm_encoder_fused": check_flash_grad(7, 1297, 1297, seed=64, heads=12,
                                                      fused=True, timed=True),
               "elevation_decoder": check_flash_grad(1, 1024, 1024, seed=65, heads=2, d=32,
-                                                    timed=True)}
+                                                    timed=True),
+              "middle_tile_masked": check_flash_grad(2, 1024, 1024, seed=66, heads=4,
+                                                     hole=(384, 512), nan_v=True, nan_k=True)}
     for name, r in k2_bwd.items():
         _say(f"K2bwd:{name}", **r, rel_tol=K2_GRAD_REL_TOL,
              max_abs_tol_of_max_grad=K2_GRAD_MAX_ABS_TOL)
@@ -4750,7 +4824,8 @@ def check_attention_grad(shape: dict, seed: int, nan_pad_v: bool = False,
     and the backward kernels against the gradient of the plain version
     under autograd in fp32, for a bf16-exact cotangent on every row. With
     `nan_pad_v` the pad rows of V hold NaN. With `timed`, the backward's
-    time (both kernels and the row terms before them), each kernel's alone,
+    time (the two kernels; the dQ kernel computes the row terms), each
+    kernel's alone (and any other kernel in their trace: none is allowed),
     the plain backward's (`packed_sdpa_backward`, the CPU's), SDPA's
     backward (a yardstick, with a key mask), and the bounds."""
     import torch
@@ -5148,6 +5223,9 @@ def run_train() -> dict:
             or not out["grad"]["ok"] or not out["grad_nan_v"]["ok"]):
         raise SystemExit("train: K1's forward or gradient disagrees with its plain version at "
                          "the train shape (see train:K1*)")
+    if out["grad"]["other_kernels"]:
+        raise SystemExit("train: a backward call at the train shape ran other kernels than the "
+                         f"two backward kernels: {out['grad']['other_kernels']}")
     out["step"] = s = run_train_step()
     _say("train:step", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
                           for k, v in s.items() if k != "mesh"})
@@ -5226,16 +5304,35 @@ def main() -> int:
         ptxas = " | ".join(ln.strip() for ln in log.splitlines()
                            if any(w in ln for w in ("registers", "spill", "wgmma", "arning")))
         _say(f"build:{name}", ptxas=json.dumps(ptxas))
+        if name in (KERNEL_NAMES["k1"], KERNEL_NAMES["k2"]):
+            for fn, line in ptxas_by_function(log).items():
+                _say(f"build:{name}:{fn}", ptxas=json.dumps(line))
     _say("build", s=build_s, kernels=len(logs))
     tool = cuobjdump()
-    sass = {}
+    sass, dumps = {}, {}
     for k in ("k1", "k2", "k3"):
         if tool is None:
             sass[k] = "not measured (no cuobjdump)"
             continue
-        sass[k] = sass_opcodes(build.library_path(KERNEL_NAMES[k]), tool)
+        dumps[k] = sass_dump(build.library_path(KERNEL_NAMES[k]), tool)
+        sass[k] = sass_opcodes(dumps[k])
         if not all(sass[k][op] for op in SASS_REQUIRED):
             raise SystemExit(f"{KERNEL_NAMES[k]}: SASS lacks {SASS_REQUIRED}: {sass[k]}")
+    # The backward kernels, function by function, in both libraries.
+    if tool is None:
+        sass["bwd"] = "not measured (no cuobjdump)"
+    else:
+        sass["bwd"] = {}
+        for k in ("k1", "k2"):
+            funcs = sass_by_function(dumps[k])
+            if sorted({f.split("<")[0] for f in funcs}) != sorted(BWD_FUNCTIONS):
+                raise SystemExit(f"{KERNEL_NAMES[k]}: backward kernels missing: {sorted(funcs)}")
+            for fn, ops in funcs.items():
+                if not all(ops[op] for op in SASS_REQUIRED) or any(ops[op]
+                                                                   for op in BWD_FORBIDDEN):
+                    raise SystemExit(f"{KERNEL_NAMES[k]}:{fn}: SASS needs {SASS_REQUIRED} and "
+                                     f"none of {BWD_FORBIDDEN}: {ops}")
+                sass["bwd"][f"{KERNEL_NAMES[k]}:{fn}"] = ops
     _say("sass", cuobjdump=tool, **{k: json.dumps(v) for k, v in sass.items()})
 
     # 3. K1 against its plain version at its path shapes (MoGe, DepthPro, the
@@ -5497,10 +5594,14 @@ def main() -> int:
 
     k2, k3, k4 = kc["k2"], kc["k3"], kc["k4"]
     k2_bwd, tg = kc["k2_bwd"], trn["grad"]
-    bwd_design = ("attention_bwd_sm90.cuh: 64-row blocks of four warps, mma.sync m16n8k16 "
-                  "bf16 with fp32 accumulators, ldmatrix from padded shared-memory tiles, "
-                  "cp.async double-buffered streamed tiles with zero-fill for masked rows; "
-                  "the block's own rows and P, dS kept in registers; no atomics")
+    bwd_design = ("attention_bwd_sm90.cuh: 128-row blocks of two consumer warpgroups and a "
+                  "TMA producer warpgroup (setmaxnreg 240/24); dK/dV: K, V once, 64-row Q/dO "
+                  "tiles with their LSE and D slices in a 3-stage mbarrier ring, wgmma "
+                  "m64n64k16 S^T, dP^T from shared memory, m64n{d}k16 dV, dK with P^T, dS^T "
+                  "from registers; dQ: launched first, D = rowsum(dO o O) and the dead-row "
+                  "rule in its prologue, 128-key K/V tiles (tiles with no live key skipped), "
+                  "m64n128k16 S, dP, m64n{d}k16 dQ; masked keys and dead rows zeroed by "
+                  "selects and in shared memory; TMA stores; no atomics")
 
     def bwd_row(part, replaces):
         """One backward kernel's row: its device time in a trace of whole
@@ -5520,7 +5621,8 @@ def main() -> int:
                 "shape": "packed qkv (8, 1408, 3072), n_real 1370, 16 heads of 64 (MoGe "
                          "ViT-L's train step, K1's backward)",
                 "design": bwd_design, "entry_points": "packed_attention_bwd (K1), "
-                "flash_attention_bwd (K2)",
+                "flash_attention_bwd (K2)", "sass": sass["bwd"],
+                "backward_ms": tg["backward_ms"], "other_kernels": tg["other_kernels"],
                 "grad_rel_err_train": tg["rel_err"],
                 **{n: {"ms": r[f"{part}_ms"], "bound_ms": r[f"{part}_bound_ms"],
                        "bound_by": r[f"{part}_bound_by"], "backward_ms": r["ms"],

@@ -30,8 +30,9 @@
 // Backward. flash_attention_bwd is the library's custom VJP
 // (_flash_attention_bwd_dkv and _flash_attention_bwd_dq, its two further
 // pallas_calls): the dQ and dK/dV kernels of attention_bwd_sm90.cuh over
-// the same strided operands and segment ids, from the row log-sum-exp that
-// the forward writes when asked (`lse`).
+// the same strided operands and segment ids (StridedBwdLoader: TMA maps of
+// q, k, v, the output and its cotangent through their strides), from the
+// row log-sum-exp that the forward writes when asked (`lse`).
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): the
 // matcher decoder's call, P pairs x 1296 queries x 1296 keys x 12 heads of
@@ -113,6 +114,94 @@ int run(const void* q, const void* k, const void* v, void* out, const void* kv_i
   return launch(ld, (sq + kBlockM - 1) / kBlockM, num_heads, batch, stream);
 }
 
+// The backward's loader (attention_bwd_sm90.cuh): the same (D, H, S, B)
+// maps of the strided operands, with the boxes the two kernels load (64
+// query rows, 128 keys), and maps of the contiguous gradients.
+template <int D>
+struct StridedBwdLoader {
+  static constexpr int kHeadDim = D;
+  CUtensorMap q, dout, out;  // box 64 rows
+  CUtensorMap k, v;          // box 128 rows
+  CUtensorMap dq, dk, dv;    // (D, H, S, B), contiguous; box 64 rows
+  const int* ids;            // (B, Sk), 0 = real key; or null
+  const float* lse;          // (B, H, Sq), the forward's
+  float* l2s;                // (B, H, rows_pad) scratch: LSE in log2 units
+  float* dls;                // (B, H, rows_pad) scratch: D
+  int n_keys;                // Sk
+  int n_rows;                // Sq
+  int n_kv_rows;             // Sk
+  int rows_pad;              // Sq rounded up to 64
+  float scale;
+
+  __device__ const int* key_ids(int b) const {
+    return ids == nullptr ? nullptr : ids + static_cast<long long>(b) * n_keys;
+  }
+  __device__ void prefetch() const {
+    prefetch_map(&q);
+    prefetch_map(&dout);
+    prefetch_map(&out);
+    prefetch_map(&k);
+    prefetch_map(&v);
+  }
+  __device__ void load_q(uint32_t dst, uint32_t bar, int r0, int h, int b) const {
+    tma_load_4d(dst, &q, bar, 0, h, r0, b);
+  }
+  __device__ void load_do(uint32_t dst, uint32_t bar, int r0, int h, int b) const {
+    tma_load_4d(dst, &dout, bar, 0, h, r0, b);
+  }
+  __device__ void load_o(uint32_t dst, uint32_t bar, int r0, int h, int b) const {
+    tma_load_4d(dst, &out, bar, 0, h, r0, b);
+  }
+  __device__ void load_k(uint32_t dst, uint32_t bar, int r0, int h, int b) const {
+    tma_load_4d(dst, &k, bar, 0, h, r0, b);
+  }
+  __device__ void load_v(uint32_t dst, uint32_t bar, int r0, int h, int b) const {
+    tma_load_4d(dst, &v, bar, 0, h, r0, b);
+  }
+  __device__ void store_dq(uint32_t src, int r0, int h, int b) const {
+    tma_store_4d(&dq, src, 0, h, r0, b);
+  }
+  __device__ void store_dk(uint32_t src, int r0, int h, int b) const {
+    tma_store_4d(&dk, src, 0, h, r0, b);
+  }
+  __device__ void store_dv(uint32_t src, int r0, int h, int b) const {
+    tma_store_4d(&dv, src, 0, h, r0, b);
+  }
+};
+
+// in: q, k, v, out, dout; grads: dq, dk, dv; st: their (sb, ss, sh)
+// element strides in that order.
+template <int D>
+int run_bwd(const void* const (&in)[5], void* const (&grads)[3], const void* lse,
+            void* lse_rows, void* delta_rows, const void* kv_ids, int batch, int sq, int sk,
+            int num_heads, const long long (&st)[15], float scale, cudaStream_t stream) {
+  StridedBwdLoader<D> ld;
+  const long long w = static_cast<long long>(num_heads) * D;
+  const int seq[5] = {sq, sk, sk, sq, sq};
+  const int box[5] = {attn_bwd::kQTile, attn_bwd::kKTile, attn_bwd::kKTile, attn_bwd::kQTile,
+                      attn_bwd::kQTile};
+  CUtensorMap* maps[5] = {&ld.q, &ld.k, &ld.v, &ld.out, &ld.dout};
+  int err = 0;
+  for (int i = 0; i < 5 && err == 0; ++i) {
+    err = encode_operand<D>(maps[i], in[i], batch, seq[i], num_heads, st[3 * i],
+                            st[3 * i + 1], st[3 * i + 2], box[i]);
+  }
+  if (err == 0) err = encode_operand<D>(&ld.dq, grads[0], batch, sq, num_heads, sq * w, w, D, 64);
+  if (err == 0) err = encode_operand<D>(&ld.dk, grads[1], batch, sk, num_heads, sk * w, w, D, 64);
+  if (err == 0) err = encode_operand<D>(&ld.dv, grads[2], batch, sk, num_heads, sk * w, w, D, 64);
+  if (err != 0) return err;
+  ld.ids = static_cast<const int*>(kv_ids);
+  ld.lse = static_cast<const float*>(lse);
+  ld.l2s = static_cast<float*>(lse_rows);
+  ld.dls = static_cast<float*>(delta_rows);
+  ld.n_keys = sk;
+  ld.n_rows = sq;
+  ld.n_kv_rows = sk;
+  ld.rows_pad = (sq + 63) / 64 * 64;
+  ld.scale = scale;
+  return attn_bwd::launch_bwd(ld, num_heads, batch, stream);
+}
+
 }  // namespace
 
 // C entry point (bound with ctypes). Strides are in elements; the head dim
@@ -141,41 +230,35 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 }
 
 // The backward (attention_bwd_sm90.cuh): dq, dk and dv, fresh contiguous
-// (B, S, H, D) bf16 arrays, from q, k, v and the output's cotangent `dout`
-// read through their element strides, the forward's `lse` and
-// delta = rowsum(dout * out), both (B, H, Sq) fp32, and the forward's
-// `kv_ids`. Returns as the forward does.
-extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
-                                   const void* dout, const void* lse, const void* delta,
-                                   const void* kv_ids, void* dq, void* dk, void* dv, int batch,
-                                   int sq, int sk, int num_heads, int head_dim,
-                                   long long q_sb, long long q_ss, long long q_sh,
+// (B, S, H, D) bf16 arrays, from q, k, v, the forward's output `out` and the
+// output's cotangent `dout`, all read through their element strides, the
+// forward's `lse` (B, H, Sq) fp32 and `kv_ids`. `lse_rows` and `delta_rows`
+// are (B, H, Sq rounded up to 64) fp32 scratch arrays that the dQ kernel
+// fills (each row's LSE in log2 units, +inf for a dead row, and
+// D = rowsum(dout * out)) and the dK/dV kernel reads. Returns as the forward
+// does.
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* out,
+                                   const void* dout, const void* lse, void* lse_rows,
+                                   void* delta_rows, const void* kv_ids, void* dq, void* dk,
+                                   void* dv, int batch, int sq, int sk, int num_heads,
+                                   int head_dim, long long q_sb, long long q_ss, long long q_sh,
                                    long long k_sb, long long k_ss, long long k_sh,
                                    long long v_sb, long long v_ss, long long v_sh,
+                                   long long o_sb, long long o_ss, long long o_sh,
                                    long long do_sb, long long do_ss, long long do_sh,
                                    float scale, void* stream) {
   if ((head_dim != 64 && head_dim != 32) || sq < 1 || sk < 1 || batch < 1 || num_heads < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  using attn_bwd::bf16;
-  const long long w = static_cast<long long>(num_heads) * head_dim;
-  attn_bwd::BwdParams p;
-  p.q = {static_cast<const bf16*>(q), q_sb, q_ss, q_sh};
-  p.k = {static_cast<const bf16*>(k), k_sb, k_ss, k_sh};
-  p.v = {static_cast<const bf16*>(v), v_sb, v_ss, v_sh};
-  p.dout = {static_cast<const bf16*>(dout), do_sb, do_ss, do_sh};
-  p.dq = {static_cast<bf16*>(dq), sq * w, w, head_dim};
-  p.dk = {static_cast<bf16*>(dk), sk * w, w, head_dim};
-  p.dv = {static_cast<bf16*>(dv), sk * w, w, head_dim};
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.kv_ids = static_cast<const int*>(kv_ids);
-  p.heads = num_heads;
-  p.sq = sq;
-  p.n_keys = sk;
-  p.n_kv_rows = sk;
-  p.scale = scale;
+  if (const int err = attn_bwd::bind_context()) return err;
+  const long long st[15] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                            o_sb, o_ss, o_sh, do_sb, do_ss, do_sh};
+  const void* in[5] = {q, k, v, out, dout};
+  void* grads[3] = {dq, dk, dv};
   const auto s = static_cast<cudaStream_t>(stream);
-  return head_dim == 64 ? attn_bwd::launch_bwd<64>(p, batch, s)
-                        : attn_bwd::launch_bwd<32>(p, batch, s);
+  return head_dim == 64
+             ? run_bwd<64>(in, grads, lse, lse_rows, delta_rows, kv_ids, batch, sq, sk,
+                           num_heads, st, scale, s)
+             : run_bwd<32>(in, grads, lse, lse_rows, delta_rows, kv_ids, batch, sq, sk,
+                           num_heads, st, scale, s);
 }

@@ -31,8 +31,8 @@
 // Backward. The JAX package has no backward kernel for this one (its VJP is
 // XLA's over _packed_reference); packed_attention_bwd runs the dQ and dK/dV
 // kernels of attention_bwd_sm90.cuh (K2's backward) over the packed
-// tensor's column ranges, from the row log-sum-exp that the forward writes
-// when asked (`lse`).
+// tensor's column ranges (PackedBwdLoader), from the row log-sum-exp that
+// the forward writes when asked (`lse`).
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s). Every
 // query row, pad rows included, is computed and written, against the n_real
@@ -112,6 +112,95 @@ int run(const void* qkv, void* out, float* lse, int batch, int n_pad, int num_he
   return launch(ld, (n_pad + kBlockM - 1) / kBlockM, num_heads, batch, stream);
 }
 
+// The backward's loader (attention_bwd_sm90.cuh): maps over the packed
+// columns, as the forward's, with the boxes the two kernels load (64 query
+// rows, 128 keys), and over d`qkv`, whose column ranges take dq, dk, dv.
+template <int D>
+struct PackedBwdLoader {
+  static constexpr int kHeadDim = D;
+  CUtensorMap q;          // qkv as (3W, Npad, B), box 64 rows
+  CUtensorMap kv;         // qkv as (3W, n_real, B), box 128 rows: rows >= n_real read as zeros
+  CUtensorMap dout, out;  // (W, Npad, B), box 64 rows
+  CUtensorMap dqkv;       // (3W, Npad, B), box 64 rows
+  const float* lse;       // (B, H, Npad), the forward's
+  float* l2s;             // (B, H, rows_pad) scratch: LSE in log2 units
+  float* dls;             // (B, H, rows_pad) scratch: D
+  int n_keys;             // n_real
+  int n_rows;             // Npad
+  int n_kv_rows;          // Npad
+  int rows_pad;           // Npad rounded up to 64
+  int w;
+  float scale;
+
+  __device__ const int* key_ids(int) const { return nullptr; }
+  __device__ void prefetch() const {
+    prefetch_map(&q);
+    prefetch_map(&kv);
+    prefetch_map(&dout);
+    prefetch_map(&out);
+  }
+  __device__ void load_q(uint32_t dst, uint32_t bar, int r0, int h, int b) const {
+    tma_load_3d(dst, &q, bar, h * D, r0, b);
+  }
+  __device__ void load_do(uint32_t dst, uint32_t bar, int r0, int h, int b) const {
+    tma_load_3d(dst, &dout, bar, h * D, r0, b);
+  }
+  __device__ void load_o(uint32_t dst, uint32_t bar, int r0, int h, int b) const {
+    tma_load_3d(dst, &out, bar, h * D, r0, b);
+  }
+  __device__ void load_k(uint32_t dst, uint32_t bar, int r0, int h, int b) const {
+    tma_load_3d(dst, &kv, bar, w + h * D, r0, b);
+  }
+  __device__ void load_v(uint32_t dst, uint32_t bar, int r0, int h, int b) const {
+    tma_load_3d(dst, &kv, bar, 2 * w + h * D, r0, b);
+  }
+  __device__ void store_dq(uint32_t src, int r0, int h, int b) const {
+    tma_store_3d(&dqkv, src, h * D, r0, b);
+  }
+  __device__ void store_dk(uint32_t src, int r0, int h, int b) const {
+    tma_store_3d(&dqkv, src, w + h * D, r0, b);
+  }
+  __device__ void store_dv(uint32_t src, int r0, int h, int b) const {
+    tma_store_3d(&dqkv, src, 2 * w + h * D, r0, b);
+  }
+};
+
+// in: qkv, out, dout.
+template <int D>
+int run_bwd(const void* const (&in)[3], const void* lse, void* lse_rows, void* delta_rows,
+            void* dqkv, int batch, int n_pad, int num_heads, int n_real, float scale,
+            cudaStream_t stream) {
+  const int w = num_heads * D;
+  PackedBwdLoader<D> ld;
+  const cuuint64_t row = 3ull * w * 2;
+  const cuuint64_t qkv_strides[2] = {row, row * n_pad};
+  const cuuint64_t out_strides[2] = {2ull * w, 2ull * w * n_pad};
+  const cuuint32_t q_box[3] = {D, attn_bwd::kQTile, 1};
+  const cuuint32_t kv_box[3] = {D, attn_bwd::kKTile, 1};
+  const cuuint64_t qkv_dims[3] = {3ull * w, static_cast<cuuint64_t>(n_pad),
+                                  static_cast<cuuint64_t>(batch)};
+  const cuuint64_t kv_dims[3] = {3ull * w, static_cast<cuuint64_t>(n_real),
+                                 static_cast<cuuint64_t>(batch)};
+  const cuuint64_t out_dims[3] = {static_cast<cuuint64_t>(w), static_cast<cuuint64_t>(n_pad),
+                                  static_cast<cuuint64_t>(batch)};
+  int err = encode_map(&ld.q, in[0], 3, qkv_dims, qkv_strides, q_box, kSwizzle<D>);
+  if (err == 0) err = encode_map(&ld.kv, in[0], 3, kv_dims, qkv_strides, kv_box, kSwizzle<D>);
+  if (err == 0) err = encode_map(&ld.out, in[1], 3, out_dims, out_strides, q_box, kSwizzle<D>);
+  if (err == 0) err = encode_map(&ld.dout, in[2], 3, out_dims, out_strides, q_box, kSwizzle<D>);
+  if (err == 0) err = encode_map(&ld.dqkv, dqkv, 3, qkv_dims, qkv_strides, q_box, kSwizzle<D>);
+  if (err != 0) return err;
+  ld.lse = static_cast<const float*>(lse);
+  ld.l2s = static_cast<float*>(lse_rows);
+  ld.dls = static_cast<float*>(delta_rows);
+  ld.n_keys = n_real;
+  ld.n_rows = n_pad;
+  ld.n_kv_rows = n_pad;
+  ld.rows_pad = (n_pad + 63) / 64 * 64;
+  ld.w = w;
+  ld.scale = scale;
+  return attn_bwd::launch_bwd(ld, num_heads, batch, stream);
+}
+
 }  // namespace
 
 // C entry point (bound with ctypes). `lse` is null or a (B, H, Npad) fp32
@@ -134,41 +223,25 @@ extern "C" int packed_attention_fwd(const void* qkv, void* out, void* lse, int b
 
 // The backward (attention_bwd_sm90.cuh): d`qkv` (B, Npad, 3W) bf16, its
 // column ranges [0, W), [W, 2W) and [2W, 3W) written by the dQ and the dK/dV
-// kernels in place (no concatenation), from the packed `qkv`, the output's
-// cotangent `dout` (B, Npad, W), the forward's `lse` and
-// delta = rowsum(dout * out), both (B, H, Npad) fp32. Keys >= n_real are
-// masked, and their dK and dV rows are written as zeros. Returns as
-// flash_attention_bwd does.
-extern "C" int packed_attention_bwd(const void* qkv, const void* dout, const void* lse,
-                                    const void* delta, void* dqkv, int batch, int n_pad,
-                                    int num_heads, int head_dim, int n_real, float scale,
-                                    void* stream) {
+// kernels in place (no concatenation), from the packed `qkv`, the forward's
+// output `out` and the output's cotangent `dout`, both contiguous
+// (B, Npad, W), and the forward's `lse` (B, H, Npad) fp32. `lse_rows` and
+// `delta_rows` are (B, H, Npad rounded up to 64) fp32 scratch arrays (as for
+// flash_attention_bwd). Keys >= n_real are masked, and their dK and dV rows
+// are written as zeros. Returns as flash_attention_bwd does.
+extern "C" int packed_attention_bwd(const void* qkv, const void* out, const void* dout,
+                                    const void* lse, void* lse_rows, void* delta_rows,
+                                    void* dqkv, int batch, int n_pad, int num_heads,
+                                    int head_dim, int n_real, float scale, void* stream) {
   if ((head_dim != 64 && head_dim != 32) || n_real < 1 || n_real > n_pad || batch < 1 ||
       num_heads < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  using attn_bwd::bf16;
-  const long long w = static_cast<long long>(num_heads) * head_dim;
-  const long long row = 3 * w;
-  const auto* in = static_cast<const bf16*>(qkv);
-  auto* out = static_cast<bf16*>(dqkv);
-  attn_bwd::BwdParams p;
-  p.q = {in, n_pad * row, row, head_dim};
-  p.k = {in + w, n_pad * row, row, head_dim};
-  p.v = {in + 2 * w, n_pad * row, row, head_dim};
-  p.dout = {static_cast<const bf16*>(dout), n_pad * w, w, head_dim};
-  p.dq = {out, n_pad * row, row, head_dim};
-  p.dk = {out + w, n_pad * row, row, head_dim};
-  p.dv = {out + 2 * w, n_pad * row, row, head_dim};
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.kv_ids = nullptr;
-  p.heads = num_heads;
-  p.sq = n_pad;
-  p.n_keys = n_real;
-  p.n_kv_rows = n_pad;
-  p.scale = scale;
+  if (const int err = attn_bwd::bind_context()) return err;
+  const void* in[3] = {qkv, out, dout};
   const auto s = static_cast<cudaStream_t>(stream);
-  return head_dim == 64 ? attn_bwd::launch_bwd<64>(p, batch, s)
-                        : attn_bwd::launch_bwd<32>(p, batch, s);
+  return head_dim == 64 ? run_bwd<64>(in, lse, lse_rows, delta_rows, dqkv, batch, n_pad,
+                                      num_heads, n_real, scale, s)
+                        : run_bwd<32>(in, lse, lse_rows, delta_rows, dqkv, batch, n_pad,
+                                      num_heads, n_real, scale, s);
 }

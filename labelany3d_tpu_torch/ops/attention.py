@@ -111,7 +111,7 @@ def _bwd_lib():
 
     fn = build.load(_SOURCE).packed_attention_bwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -162,17 +162,13 @@ def packed_sdpa_lse_reference(qkv: torch.Tensor, num_heads: int, n_real: int) ->
     return flash_sdpa_lse_reference(q, k, ids if n_real < n_pad else None)
 
 
-def _row_terms(out: torch.Tensor, grad_out: torch.Tensor, lse: torch.Tensor):
-    """The backward kernels' per-row inputs from (B, S, H, D) `out` and
-    `grad_out` and the forward's (B, H, S) `lse`: D = rowsum(grad_out * out)
-    in fp32 (as the library computes `di` in XLA), and LSE. A row whose
-    cotangent is zero adds nothing to any gradient in exact arithmetic: it
-    gets LSE = +inf and D = 0, which the kernels read as "takes no part", so
-    NaN in such a row (a pad row that feeds nothing) reaches no gradient."""
-    dead = (grad_out == 0).all(-1).transpose(1, 2)
-    delta = (out.float() * grad_out.float()).sum(-1).transpose(1, 2)
-    lse = lse.masked_fill(dead, float("inf")).contiguous()
-    return lse, delta.masked_fill(dead, 0.0).contiguous()
+def _row_scratch(b: int, heads: int, rows: int, device) -> torch.Tensor:
+    """The backward kernels' per-row scratch, (2, B, H, rows rounded up to
+    64) fp32: the dQ kernel writes each row's LSE (log2 units; +inf for a
+    row whose cotangent is zero, which then takes no part, so NaN in such a
+    row reaches no gradient) and D = rowsum(grad_out * out) (the library's
+    `di`), and the dK/dV kernel reads them."""
+    return torch.empty((2, b, heads, -(-rows // 64) * 64), dtype=torch.float32, device=device)
 
 
 def _readable(t: torch.Tensor) -> bool:
@@ -187,10 +183,12 @@ def packed_sdpa_backward_kernel(qkv: torch.Tensor, out: torch.Tensor, grad_out: 
     """d`qkv` (B, Npad, 3W) of `packed_sdpa` on the card: the dQ and dK/dV
     kernels (`csrc/attention_bwd_sm90.cuh`, K2's backward) over the packed
     columns, from `qkv`, the forward's `out` and `lse` (`packed_sdpa_kernel(...,
-    lse=True)`) and the cotangent `grad_out` (B, Npad, W). P and dS are
-    rounded to bf16 before their products, as the JAX package's VJP rounds
-    them on bf16 operands. The head dim is checked first, so a call the
-    kernels cannot take raises on any device."""
+    lse=True)`) and the cotangent `grad_out` (B, Npad, W). The dQ kernel
+    computes the row terms (D and the dead-row rule) itself, so the call is
+    the two kernels and nothing else on the card. P and dS are rounded to
+    bf16 before their products, as the JAX package's VJP rounds them on bf16
+    operands. The head dim is checked first, so a call the kernels cannot
+    take raises on any device."""
     if qkv.dim() == 3 and qkv.shape[2] % (3 * num_heads) == 0:
         _check_head_dim(qkv.shape[2] // 3 // num_heads, "packed attention backward")
     for name, t in (("qkv", qkv), ("out", out), ("grad_out", grad_out), ("lse", lse)):
@@ -218,17 +216,15 @@ def packed_sdpa_backward_kernel(qkv: torch.Tensor, out: torch.Tensor, grad_out: 
         raise ValueError("qkv must be contiguous and 16-byte aligned")
     if not 1 <= n_real <= n_pad:
         raise ValueError(f"need 1 <= n_real <= Npad, got Npad={n_pad}, n_real={n_real}")
-    grad_out = grad_out.contiguous()
-    if grad_out.data_ptr() % 16:
-        grad_out = grad_out.clone()
-    rows, delta = _row_terms(out.reshape(b, n_pad, num_heads, d),
-                             grad_out.view(b, n_pad, num_heads, d), lse)
+    grad_out, out, lse = (t.contiguous() for t in (grad_out, out, lse))
+    grad_out, out = (t.clone() if t.data_ptr() % 16 else t for t in (grad_out, out))
+    rows = _row_scratch(b, num_heads, n_pad, qkv.device)
     dqkv = torch.empty_like(qkv)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_lib()(qkv.data_ptr(), grad_out.data_ptr(), rows.data_ptr(), delta.data_ptr(),
-                         dqkv.data_ptr(), b, n_pad, num_heads, d, n_real,
-                         1.0 / float(d) ** 0.5, stream)
+        err = _bwd_lib()(qkv.data_ptr(), out.data_ptr(), grad_out.data_ptr(), lse.data_ptr(),
+                         rows[0].data_ptr(), rows[1].data_ptr(), dqkv.data_ptr(), b, n_pad,
+                         num_heads, d, n_real, 1.0 / float(d) ** 0.5, stream)
     if err:
         raise RuntimeError(f"packed attention backward kernel launch failed: CUDA error {err}")
     PACKED_BACKWARD_LAUNCHES.count += 1
@@ -416,7 +412,8 @@ def flash_sdpa_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     dS = (dP - D) o P, dK = dS^T Q, dQ = dS K (both times the scale).
     Masked keys are zeroed in K and V and their P is 0 (so NaN in a masked
     V row reaches nothing); a query row whose cotangent is zero takes no
-    part (`_row_terms`). Chunked over heads so long sequences fit."""
+    part (the dQ kernel's dead-row rule). Chunked over heads so long
+    sequences fit."""
     keep = _key_mask(segment_ids, q, k)
     b, sq, heads, d = q.shape
     sk = k.shape[1]
@@ -465,8 +462,8 @@ def _flash_bwd_lib():
 
     fn = build.load("flash_attention").flash_attention_bwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong] * 12
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] * 15
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -527,15 +524,16 @@ def flash_sdpa_backward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                                segment_ids: torch.Tensor | None = None):
     """(dq, dk, dv) of `flash_sdpa` on the card: the dQ and dK/dV kernels
     (`csrc/attention_bwd_sm90.cuh`), the Pallas library's
-    `_flash_attention_bwd_dq` and `_flash_attention_bwd_dkv`. q, k, v and
-    `grad_out` are read through their strides (as the forward reads q, k
-    and v: column views and broadcast operands included); `out` and `lse`
-    are the forward's (`flash_sdpa_kernel(..., lse=True)`). Returns fresh
+    `_flash_attention_bwd_dq` and `_flash_attention_bwd_dkv`. q, k, v, `out`
+    and `grad_out` are read through their strides (as the forward reads q,
+    k and v: column views and broadcast operands included); `out` and `lse`
+    are the forward's (`flash_sdpa_kernel(..., lse=True)`). The dQ kernel
+    computes the row terms (D and the dead-row rule) itself. Returns fresh
     contiguous gradients of q's, k's and v's shapes (autograd sums those
     of broadcast operands). The head dim is checked first, so a call the
     kernels cannot take raises on any device."""
     _check_head_dim(q.shape[-1], "flash attention backward")
-    _check_strided((("q", q), ("k", k), ("v", v), ("grad_out", grad_out)),
+    _check_strided((("q", q), ("k", k), ("v", v), ("out", out), ("grad_out", grad_out)),
                    "flash attention backward")
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -549,18 +547,20 @@ def flash_sdpa_backward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         raise ValueError(f"lse must be float32 (B, H, Sq) = {(b, h, sq)} on {q.device}, got "
                          f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
     ids = _key_ids(segment_ids, q, k)
-    rows, delta = _row_terms(out, grad_out, lse)
+    lse = lse.contiguous()
+    rows = _row_scratch(b, h, sq, q.device)
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=v.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _flash_bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), grad_out.data_ptr(),
-                               rows.data_ptr(), delta.data_ptr(),
-                               None if ids is None else ids.data_ptr(), dq.data_ptr(),
-                               dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, d,
+        err = _flash_bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                               grad_out.data_ptr(), lse.data_ptr(), rows[0].data_ptr(),
+                               rows[1].data_ptr(), None if ids is None else ids.data_ptr(),
+                               dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, d,
                                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                               *grad_out.stride()[:3], 1.0 / float(d) ** 0.5, stream)
+                               *out.stride()[:3], *grad_out.stride()[:3],
+                               1.0 / float(d) ** 0.5, stream)
     if err:
         raise RuntimeError(f"flash attention backward kernel launch failed: CUDA error {err}")
     FLASH_BACKWARD_LAUNCHES.count += 1

@@ -279,6 +279,10 @@ def test_rope_vit_parameter_gradients_match_jax(hw):
 
 
 def test_backward_wrappers_raise_on_cpu_tensors_and_other_shapes():
+    # The kernels' per-row scratch (LSE and D, written by the dQ kernel):
+    # one fp32 array, its rows padded to the dK/dV kernel's 64-row tiles.
+    rows = att._row_scratch(3, 2, 65, "cpu")
+    assert rows.shape == (2, 3, 2, 128) and rows.dtype == torch.float32
     q = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16)
     lse = torch.zeros(1, 2, 64)
     with pytest.raises(ValueError, match="needs CUDA"):

@@ -154,12 +154,16 @@ def test_packed_attention_backward_kernel_at_the_train_shape():
     assert torch.equal(once, port.packed_sdpa_backward_kernel(base, out, cot, lse, heads, n_real))
 
 
-def _flash_grad_check(q, k, v, seg=None):
+def _flash_grad_check(q, k, v, seg=None, dead=None):
     """K2 under autograd on the card (the kernel forward with its LSE, the
     backward kernels) against the fp32 plain version's autograd gradients
-    from the same bf16 inputs and a bf16-exact cotangent."""
+    from the same bf16 inputs and a bf16-exact cotangent, zero on the query
+    rows dead[0] .. dead[1] - 1 if given. Returns the leaves and the
+    cotangent."""
     g = torch.Generator(device="cuda").manual_seed(7)
     cot = torch.randn(q.shape, device="cuda", generator=g).bfloat16()
+    if dead is not None:
+        cot[:, dead[0]:dead[1]] = 0.0
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     launches = port.FLASH_BACKWARD_LAUNCHES.count
     out = port.flash_sdpa(*leaves, seg)
@@ -170,24 +174,32 @@ def _flash_grad_check(q, k, v, seg=None):
     port.flash_sdpa_reference(*refs, seg).backward(cot.float())
     for got, want in zip(leaves, refs):
         _grad_close(got.grad, want.grad)
-    return leaves
+    return leaves, cot
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,sq,sk,heads,d,masked,strided", [
-    (4, 1296, 1296, 12, 64, None, False),         # the matcher decoder's self-attention
-    (2, 1296, 777, 12, 64, None, True),           # cross shape, q read through strides
-    (2, 1024, 1024, 16, 64, (923, 1024), False),  # a padded rope encoder's segment ids
-    (1, 5, 67, 12, 64, None, False),              # one partial tile each way
-    (2, 1, 300, 2, 64, None, False),              # Sq = 1
-    (2, 300, 1, 2, 64, None, False),              # Sk = 1
-    (1, 1024, 1024, 2, 32, None, False),          # the elevation decoder, head dim 32
-    (2, 300, 300, 2, 32, (250, 300), False),      # head dim 32 with segment ids
-    (2, 4096, 1374, 16, 64, None, False),         # TRELLIS SS cross (a ragged key tile)
+@pytest.mark.parametrize("b,sq,sk,heads,d,masked,strided,dead", [
+    (4, 1296, 1296, 12, 64, None, False, False),         # the matcher decoder's self-attention
+    (2, 1296, 777, 12, 64, None, True, False),           # cross shape, q read through strides
+    (2, 1024, 1024, 16, 64, (923, 1024), False, False),  # a padded rope encoder's segment ids
+    (1, 5, 67, 12, 64, None, False, False),              # one partial tile each way
+    (2, 1, 300, 2, 64, None, False, False),              # Sq = 1
+    (2, 300, 1, 2, 64, None, False, False),              # Sk = 1
+    (1, 1024, 1024, 2, 32, None, False, False),          # the elevation decoder, head dim 32
+    (2, 300, 300, 2, 32, (250, 300), False, False),      # head dim 32 with segment ids
+    (2, 4096, 1374, 16, 64, None, False, False),         # TRELLIS SS cross (a ragged key tile)
+    (2, 1024, 1024, 16, 64, (384, 512), False, False),   # a whole key tile masked mid-sequence
+    (2, 129, 1374, 4, 64, None, False, False),           # ragged against 128-row blocks both ways
+    (2, 700, 700, 4, 64, (300, 305), False, True),       # dead rows: NaN q, k, v, zero cotangent
+    (1, 300, 300, 2, 32, (0, 1), False, True),           # a dead first row at head dim 32
 ])
-def test_flash_attention_backward_kernel_matches_plain(b, sq, sk, heads, d, masked, strided):
+def test_flash_attention_backward_kernel_matches_plain(b, sq, sk, heads, d, masked, strided,
+                                                       dead):
     """`masked` = (lo, hi): keys lo..hi-1 carry a non-zero segment id and
-    their V rows hold NaN."""
+    their V rows hold NaN. With `dead`, their q, k and v rows hold NaN and
+    the cotangent is zero there instead: the gradients must be finite and
+    equal to those of the same inputs without NaN. Every case also repeats
+    the backward call bit for bit (no atomics)."""
     _cuda_or_skip()
     g = torch.Generator(device="cuda").manual_seed(8)
 
@@ -201,8 +213,63 @@ def test_flash_attention_backward_kernel_matches_plain(b, sq, sk, heads, d, mask
     if masked:
         seg = torch.zeros(b, sk, dtype=torch.int32, device="cuda")
         seg[:, masked[0]:masked[1]] = 1
-        v[:, masked[0]:masked[1]] = float("nan")
-    _flash_grad_check(q, k, v, seg)
+        if not dead:
+            v[:, masked[0]:masked[1]] = float("nan")
+    leaves, cot = _flash_grad_check(q, k, v, seg, masked if dead else None)
+    if dead:
+        nan = [t.detach().clone() for t in (q, k, v)]
+        for t in nan:
+            t[:, masked[0]:masked[1]] = float("nan")
+            t.requires_grad_()
+        port.flash_sdpa(*nan, seg).backward(cot)
+        for got, clean in zip(nan, leaves):
+            assert torch.isfinite(got.grad).all()
+            assert torch.equal(got.grad, clean.grad)
+    out, lse = port.flash_sdpa_kernel(q, k, v, seg, lse=True)
+    once = port.flash_sdpa_backward_kernel(q, k, v, out, lse, cot, seg)
+    again = port.flash_sdpa_backward_kernel(q, k, v, out, lse, cot, seg)
+    assert all(torch.equal(x, y) for x, y in zip(once, again))
+
+
+@pytest.mark.cuda
+def test_attention_backward_kernels_run_on_a_fresh_thread():
+    """Autograd runs the backward on a thread of its own, where no CUDA
+    context may be current yet; the entry points bind the device's before
+    they encode their tensor maps, so a call from a fresh thread gives the
+    main thread's gradients bit for bit."""
+    _cuda_or_skip()
+    import threading
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, cot = (torch.randn(2, 256, 4, 64, device="cuda", generator=g).bfloat16()
+                    for _ in range(4))
+    out, lse = port.flash_sdpa_kernel(q, k, v, lse=True)
+    qkv = torch.randn(2, 256, 3 * 256, device="cuda", generator=g).bfloat16()
+    pcot = torch.randn(2, 256, 256, device="cuda", generator=g).bfloat16()
+    pout, plse = port.packed_sdpa_kernel(qkv, 4, 200, lse=True)
+
+    def calls():
+        return (port.flash_sdpa_backward_kernel(q, k, v, out, lse, cot),
+                port.packed_sdpa_backward_kernel(qkv, pout, pcot, plse, 4, 200))
+
+    want = calls()
+    calls()  # freed at once: blocks of these sizes stay in the allocator's cache
+    got = {}
+
+    def work():
+        try:
+            got["grads"] = calls()
+        except Exception as e:  # re-raised on the test's thread
+            got["error"] = e
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join()
+    if "error" in got:
+        raise got["error"]
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got["grads"][0], want[0]))
+    assert torch.equal(got["grads"][1], want[1])
 
 
 @pytest.mark.cuda
