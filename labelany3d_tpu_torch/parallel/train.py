@@ -36,6 +36,7 @@ from torch import nn
 
 from labelany3d_tpu_torch.parallel.mesh import axis_size, shard_batch
 from labelany3d_tpu_torch.parallel.sharding import shard_params
+from labelany3d_tpu_torch.utils.profiling import annotate
 
 # optax.adamw's defaults.
 ADAMW_DEFAULTS = {"betas": (0.9, 0.999), "eps": 1e-8, "weight_decay": 1e-4}
@@ -117,30 +118,43 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer):
     mesh, give it this rank's rows (`prepare_batch`); the loss it returns
     is the global one. It runs `model.forward` with grad enabled (never
     `moge_infer` or an inference-mode backend). The step's gradients stay
-    on the parameters until the next step."""
+    on the parameters until the next step.
+
+    Its spans (`utils/profiling.py::annotate`, unit `state.step` before
+    the step): `train.step` around `train.forward` (the model, the loss
+    sums and their all-reduce, the loss), `train.backward`,
+    `train.grad_sum` (only where the data axis is over 1) and
+    `train.optimizer` (the zero gradients of unused parameters, AdamW)."""
 
     def step(state: TrainState, images, target_depth, valid):
         mesh = state.mesh
         dp = 1 if mesh is None else axis_size(mesh, "data")
-        optimizer.zero_grad(set_to_none=True)
-        with torch.enable_grad():
-            pred = model(images)["points"][..., 2]
-            sums = depth_sums(pred, target_depth, valid)
-            if mesh is not None:
-                # The other ranks' sums as constants: each rank
-                # differentiates the global loss through its own rows.
-                total = sums.detach().clone()
-                dist.all_reduce(total, group=mesh.get_group("data"))
-                sums = sums + (total - sums.detach())
-            loss = loss_from_sums(sums)
-            loss.backward()
-        for p in model.parameters():
-            if p.grad is None:  # unused by the loss: a zero gradient, decayed as optax does
-                p.grad = torch.zeros_like(p)
-        if dp > 1:
-            _sum_over_data(mesh, [p.grad for p in model.parameters()])
-        optimizer.step()
-        state.step += 1
+        with annotate("train.step", unit=state.step):
+            optimizer.zero_grad(set_to_none=True)
+            with torch.enable_grad():
+                with annotate("train.forward"):
+                    pred = model(images)["points"][..., 2]
+                    sums = depth_sums(pred, target_depth, valid)
+                    if mesh is not None:
+                        # The other ranks' sums as constants: each rank
+                        # differentiates the global loss through its own rows.
+                        total = sums.detach().clone()
+                        dist.all_reduce(total, group=mesh.get_group("data"))
+                        sums = sums + (total - sums.detach())
+                    loss = loss_from_sums(sums)
+                with annotate("train.backward"):
+                    loss.backward()
+            if dp > 1:
+                # Every rank leaves the same parameters without a gradient.
+                with annotate("train.grad_sum"):
+                    _sum_over_data(mesh, [p.grad for p in model.parameters()
+                                          if p.grad is not None])
+            with annotate("train.optimizer"):
+                for p in model.parameters():
+                    if p.grad is None:  # unused by the loss: a zero gradient, decayed as optax does
+                        p.grad = torch.zeros_like(p)
+                optimizer.step()
+            state.step += 1
         return state, loss.detach()
 
     return step

@@ -6,6 +6,13 @@ fused labeling program (RANSAC align + mask unpack + box fit) run on the
 device, then one pool thread copies the results to the host and writes the
 scene directory (depth_map.npy, cam_params.json, input.png, 3dbbox.json,
 bboxes.json, vis_3dbox.png) while the next batch is dispatched.
+
+Spans (`utils/profiling.py::annotate`): `fused.prefetch_wait` (the main
+thread waiting on the prefetcher), `fused.prep` (one image, on a
+prefetch thread), `fused.dispatch` (a batch up to its write's hand-off,
+holding `depth.infer` and `labeling.program`), `fused.write` (on the
+writer thread) and `fused.drain` (the wait for the last writes); a
+batch's spans share its sequence number as their unit.
 """
 
 from __future__ import annotations
@@ -28,6 +35,9 @@ from labelany3d_tpu_torch.pipeline.stages.common import (
     resize_nearest,
 )
 from labelany3d_tpu_torch.utils.png import write_png
+from labelany3d_tpu_torch.utils.profiling import annotate
+
+_END = object()
 
 
 class FusedFastStage:
@@ -55,18 +65,19 @@ class FusedFastStage:
 
     def _prep(self, item):
         """Worker-side decode + bucket resize + instance pack."""
-        info, scene = item
-        cfg = self.cfg
-        img = self.image_source.get(info)
-        bucket = cfg.pick_bucket(*img.shape[:2])
-        resized = resize_image(img, *bucket)
-        image_for_provider = img if getattr(self.provider, "needs_image", True) else None
-        inst = self.provider.instances(info, image_for_provider)
-        if len(inst) == 0:
-            return None
-        masks_p, kept = pad_instances(resize_nearest(inst.masks, *bucket), cfg.max_instances)
-        return (info, scene, img, bucket, resized, pack_instance_masks(masks_p), kept,
-                inst.labels, xywh_to_xyxy(inst.bboxes))
+        with annotate("fused.prep"):
+            info, scene = item
+            cfg = self.cfg
+            img = self.image_source.get(info)
+            bucket = cfg.pick_bucket(*img.shape[:2])
+            resized = resize_image(img, *bucket)
+            image_for_provider = img if getattr(self.provider, "needs_image", True) else None
+            inst = self.provider.instances(info, image_for_provider)
+            if len(inst) == 0:
+                return None
+            masks_p, kept = pad_instances(resize_nearest(inst.masks, *bucket), cfg.max_instances)
+            return (info, scene, img, bucket, resized, pack_instance_masks(masks_p), kept,
+                    inst.labels, xywh_to_xyxy(inst.bboxes))
 
     def _write(self, bucket, group, aligned, K_bucket, boxes):
         cfg = self.cfg
@@ -115,28 +126,34 @@ class FusedFastStage:
         done = 0
         io_pool = ThreadPoolExecutor(max_workers=1)
 
-        def fetch_and_write(bucket, group, aligned_dev, K_dev, boxes_dev):
-            aligned = aligned_dev.cpu().numpy()
-            K_bucket = K_dev.cpu().numpy().astype(np.float32)
-            boxes = {k: v.cpu().numpy() for k, v in boxes_dev._asdict().items()}
-            self._write(bucket, group, aligned, K_bucket, boxes)
+        def fetch_and_write(seq, bucket, group, aligned_dev, K_dev, boxes_dev):
+            with annotate("fused.write", unit=seq):
+                aligned = aligned_dev.cpu().numpy()
+                K_bucket = K_dev.cpu().numpy().astype(np.float32)
+                boxes = {k: v.cpu().numpy() for k, v in boxes_dev._asdict().items()}
+                self._write(bucket, group, aligned, K_bucket, boxes)
 
         def flush(bucket):
             nonlocal done
             group = pending.pop(bucket, [])
             if not group:
                 return
-            batch = np.stack([g[4] for g in group])  # uint8; normalised on device
-            packed = np.stack([g[5] for g in group])
-            if packed.dtype == np.uint32:  # torch has few uint32 ops
-                packed = packed.astype(np.int64)
-            packed = torch.as_tensor(packed, device=self.device)
-            out = self.backend.infer(batch)
-            aligned, boxes = fused_label_program(
-                out["relative_depth"], out["metric_depth"], out["depth_mask"],
-                out["K_pixels"], packed, max_instances=cfg.max_instances,
-                num_points=cfg.num_points, method=cfg.bbox_method, generator=self.generator)
-            writes.append(io_pool.submit(fetch_and_write, bucket, group, aligned,
+            seq = len(writes)
+            with annotate("fused.dispatch", unit=seq):
+                batch = np.stack([g[4] for g in group])  # uint8; normalised on device
+                packed = np.stack([g[5] for g in group])
+                if packed.dtype == np.uint32:  # torch has few uint32 ops
+                    packed = packed.astype(np.int64)
+                packed = torch.as_tensor(packed, device=self.device)
+                with annotate("depth.infer"):
+                    out = self.backend.infer(batch)
+                with annotate("labeling.program"):
+                    aligned, boxes = fused_label_program(
+                        out["relative_depth"], out["metric_depth"], out["depth_mask"],
+                        out["K_pixels"], packed, max_instances=cfg.max_instances,
+                        num_points=cfg.num_points, method=cfg.bbox_method,
+                        generator=self.generator)
+            writes.append(io_pool.submit(fetch_and_write, seq, bucket, group, aligned,
                                          out["K_pixels"], boxes))
             done += len(group)
 
@@ -149,7 +166,12 @@ class FusedFastStage:
             todo.append((info, scene))
 
         try:
-            for item in Prefetcher(todo, self._prep, depth=2 * cfg.batch_size, num_workers=4):
+            items = iter(Prefetcher(todo, self._prep, depth=2 * cfg.batch_size, num_workers=4))
+            while True:
+                with annotate("fused.prefetch_wait"):
+                    item = next(items, _END)
+                if item is _END:
+                    break
                 if item is None:
                     continue
                 bucket = item[3]
@@ -158,8 +180,9 @@ class FusedFastStage:
                     flush(bucket)
             for bucket in list(pending):
                 flush(bucket)
-            for w in writes:
-                w.result()
+            with annotate("fused.drain"):
+                for w in writes:
+                    w.result()
         finally:
             io_pool.shutdown(wait=True)
         return done

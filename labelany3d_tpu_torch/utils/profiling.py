@@ -5,14 +5,18 @@ Counterpart of `labelany3d_tpu/utils/profiling.py`:
     the one the runner's CLI reports at exit;
   * `trace(logdir)`: a `torch.profiler` run of the host and, when there is
     one, the card, written as a Chrome trace under `logdir`;
-  * `annotate(name)`: a named range in that trace, and an NVTX range on the
-    card for other tools.
+  * `annotate(name, unit)`: the program's span. Always an NVTX range on the
+    card for other tools; while a `torch.profiler` runs (`trace`, or any
+    other caller's), also a named range in its trace and a `Span` kept in
+    memory (`spans()`, `clear_spans()`). A running profiler is the only
+    switch: with none, nothing is kept.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
@@ -72,6 +76,7 @@ def trace(logdir: str):
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    clear_spans()
     prof = torch.profiler.profile(activities=activities)
     prof.start()
     try:
@@ -85,17 +90,91 @@ def trace(logdir: str):
         prof.export_chrome_trace(prof.trace_path)
 
 
+@dataclass(slots=True)
+class Span:
+    """One `annotate` range recorded while a profiler ran. `start` and `end`
+    are `time.perf_counter_ns()` (`end` is None while it is open);
+    `parent` is the index in `spans()` of the span that enclosed it on the
+    same thread; `unit` is the identifier the spans of one step or one
+    batch share (a span given none takes its parent's); `events` are CUDA
+    timing events recorded on the current stream at its two edges, where
+    the process has initialised CUDA."""
+    name: str
+    thread: int
+    start: int
+    end: int | None
+    parent: int | None
+    unit: object
+    events: tuple | None
+
+
+class _Recorder:
+    def __init__(self):
+        self.spans: list[Span] = []
+        self.lock = threading.Lock()
+        self.local = threading.local()   # `stack`: (list, index, span) of the open spans
+
+    @contextlib.contextmanager
+    def span(self, name: str, unit):
+        import torch
+
+        stack = self.local.__dict__.setdefault("stack", [])
+        parent = None
+        if stack and stack[-1][0] is self.spans:  # not from before a `clear_spans()`
+            parent = stack[-1][1]
+            if unit is None:
+                unit = stack[-1][2].unit
+        events = None
+        if torch.cuda.is_initialized():
+            events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            events[0].record()
+        rec = Span(name, threading.get_ident(), time.perf_counter_ns(), None, parent, unit, events)
+        with self.lock:
+            spans = self.spans
+            spans.append(rec)
+            index = len(spans) - 1
+        stack.append((spans, index, rec))
+        try:
+            yield
+        finally:
+            stack.pop()
+            if events is not None:
+                events[1].record()
+            rec.end = time.perf_counter_ns()
+
+    def clear(self) -> None:
+        with self.lock:
+            self.spans = []
+
+
+_RECORDER = _Recorder()
+
+
+def spans() -> list[Span]:
+    """The spans recorded since the last `clear_spans()` (or `trace()`), in
+    the order they opened; the list itself, not a copy."""
+    return _RECORDER.spans
+
+
+def clear_spans() -> None:
+    _RECORDER.clear()
+
+
 @contextlib.contextmanager
-def annotate(name: str):
-    """A named range in the profiler's trace (`record_function`), and an NVTX
-    range when CUDA is present."""
+def annotate(name: str, unit=None):
+    """The program's span: an NVTX range when CUDA is present, and, while a
+    torch profiler runs, a named range in its trace (`record_function`)
+    and a `Span` in `spans()`."""
     import torch
 
     nvtx = torch.cuda.is_available()
     if nvtx:
         torch.cuda.nvtx.range_push(name)
     try:
-        with torch.profiler.record_function(name):
+        if torch.autograd.profiler._is_profiler_enabled:
+            with torch.profiler.record_function(name), _RECORDER.span(name, unit):
+                yield
+        else:
             yield
     finally:
         if nvtx:

@@ -1,0 +1,10 @@
+"""The device time of a step's update (ms): the zero gradients of unused
+parameters and AdamW. The median, over the traced window's steps, of the
+time between the CUDA events the program records at the edges of its
+`train.optimizer` span (`parallel/train.py::make_train_step`)."""
+
+from common import program_spans
+
+
+def read(ctx):
+    return program_spans.device_ms(ctx.win, "train.optimizer")

@@ -9,7 +9,9 @@ fronto-parallel rectangles with analytic boxes). The random draws differ
   * within 2% relative: depth_map.npy (RANSAC on different subsets);
   * within the analytic 0.15 tolerance: box centres, dimensions, vertices.
 One port-only run of `runner.main` with the `tiny_test` depth preset
-checks the CLI end to end on the CPU.
+checks the CLI end to end on the CPU. The fused pass keeps its spans
+(`fused.*`) under a profiler, the writes on their own thread, and none
+without one.
 """
 
 import json
@@ -33,6 +35,8 @@ from labelany3d_tpu_torch.pipeline import runner
 from labelany3d_tpu_torch.pipeline.backends import FakeDepthBackend
 from labelany3d_tpu_torch.pipeline.config import PipelineConfig
 from labelany3d_tpu_torch.pipeline.stages.common import ArrayImageSource
+from labelany3d_tpu_torch.pipeline.stages.fused import FusedFastStage
+from labelany3d_tpu_torch.utils import profiling
 from labelany3d_tpu_torch.utils.png import write_png
 
 BOX_TOL = 0.15
@@ -177,3 +181,42 @@ def test_hungarian_match_scores_non_finite_iou_zero():
     finite = [0, 2]
     want = jhungarian_match(b0[finite], b1[finite])
     np.testing.assert_allclose([got[k][2] for k in finite], [w[2] for w in want], rtol=1e-6)
+
+
+def test_fused_pass_spans(tmp_path):
+    scene, img, depth, gts, images, annos = _world()
+    ids = (1, 2, 3)  # three copies of the scene: a batch of 2, then of 1
+    loader = _ToyLoader([dict(images[0], id=i, file_name=f"{i:012d}.jpg") for i in ids],
+                        {i: annos[1] for i in ids})
+    cfg = PipelineConfig(batch_size=2, max_instances=8, num_points=512,
+                         image_height=scene.height, image_width=scene.width)
+
+    def run(out):
+        backend = FakeDepthBackend(np.repeat(depth[None], 3, 0), scene.intrinsics(),
+                                   device="cpu")
+        stage = FusedFastStage(cfg, backend, loader, ArrayImageSource(dict.fromkeys(ids, img)),
+                               str(out), "val")
+        return stage.run(0, 3)
+
+    profiling.clear_spans()
+    assert run(tmp_path / "plain") == 3
+    assert profiling.spans() == []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert run(tmp_path / "traced") == 3
+    spans = profiling.spans()
+    by = {}
+    for s in spans:
+        by.setdefault(s.name, []).append(s)
+    assert set(by) == {"fused.prefetch_wait", "fused.prep", "fused.dispatch", "depth.infer",
+                       "labeling.program", "fused.write", "fused.drain"}
+    assert len(by["fused.prep"]) == 3 and len(by["fused.prefetch_wait"]) == 4
+    assert [s.unit for s in by["fused.dispatch"]] == [0, 1]
+    assert sorted(s.unit for s in by["fused.write"]) == [0, 1]
+    assert [s.unit for s in by["labeling.program"]] == [0, 1]
+    for name in ("depth.infer", "labeling.program"):
+        assert all(spans[s.parent].name == "fused.dispatch" for s in by[name])
+    main = by["fused.dispatch"][0].thread
+    assert all(s.thread == main for s in by["fused.prefetch_wait"] + by["fused.drain"])
+    assert all(s.thread != main for s in by["fused.write"] + by["fused.prep"])
+    assert all(s.parent is None for s in by["fused.write"])
+    profiling.clear_spans()

@@ -246,3 +246,34 @@ def test_bf16_tiny_run_learns():
         losses.append(float(loss))
     assert state.step == 5 and np.isfinite(losses).all()
     assert losses[-1] < losses[0]
+
+
+def test_train_step_spans_under_a_profiler():
+    """Three steps give, each in order, `train.step` around `train.forward`,
+    `train.backward` and `train.optimizer`, with the step as their unit;
+    without a profiler they give none."""
+    from labelany3d_tpu_torch.utils import profiling
+
+    model = moge.MoGeModel(moge.MoGeConfig.tiny_test(), HW)
+    state, opt = train.init_train_state(model, torch.Generator().manual_seed(0))
+    step = train.make_train_step(model, opt)
+    images, target, valid = (torch.from_numpy(np.asarray(a)) for a in train_batch())
+    profiling.clear_spans()
+    state, _ = step(state, images, target, valid)
+    assert profiling.spans() == []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for _ in range(3):
+            state, _ = step(state, images, target, valid)
+    spans = profiling.spans()
+    names = ["train.step", "train.forward", "train.backward", "train.optimizer"]
+    assert [s.name for s in spans] == names * 3
+    for k in range(3):
+        top, *phases = spans[4 * k:4 * k + 4]
+        assert top.parent is None and all(s.parent == 4 * k for s in phases)
+        assert {s.unit for s in spans[4 * k:4 * k + 4]} == {1 + k}
+        assert top.start <= phases[0].start and phases[-1].end <= top.end
+        assert all(a.end <= b.start for a, b in zip(phases, phases[1:]))
+    assert state.step == 4
+    profiling.clear_spans()
+    step(state, images, target, valid)
+    assert profiling.spans() == []
