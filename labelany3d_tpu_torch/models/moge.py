@@ -6,11 +6,18 @@ pyramid -> point map + mask) or the checkpoint-faithful `'reference'` head
 (`MoGeCheckpointHead`, the released MoGe head's graph and parameter names),
 then focal/shift recovery and projection-consistent depth (`moge_infer`).
 Activations run NCHW inside the heads; public tensors are NHWC as in JAX.
+
+The reference head's shape-only constants (the view-plane UV planes and the
+resize's tap matrices) are built once per shape, dtype and device and kept
+there (`_head_constant`), so a forward at a shape seen before copies nothing
+from the host and never waits for the device.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -31,6 +38,7 @@ from labelany3d_tpu_torch.models.layers import (
     resize,
 )
 from labelany3d_tpu_torch.models.vit import ViT, ViTConfig
+from labelany3d_tpu_torch.ops.attention import LaunchCounter
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,15 +135,56 @@ def _view_plane_uv(height: int, width: int, aspect: float) -> np.ndarray:
     return np.stack([uu, vv], axis=-1)
 
 
+# The head's shape-only constants, built on first use and kept on their
+# device, least recently used first out past `_HEAD_CONSTANTS_MAX`. Not
+# buffers: `state_dict` and the converters never see them. The builds and
+# the hits are counted (`HEAD_CONSTANT_BUILDS`, `HEAD_CONSTANT_HITS`); a
+# warm forward only hits.
+_HEAD_CONSTANTS_MAX = 64
+_HEAD_CONSTANTS: collections.OrderedDict = collections.OrderedDict()
+_HEAD_CONSTANTS_LOCK = threading.Lock()
+HEAD_CONSTANT_BUILDS = LaunchCounter()
+HEAD_CONSTANT_HITS = LaunchCounter()
+
+
+def _head_constant(key: tuple, build) -> torch.Tensor:
+    """The tensor kept under `key`, made by `build()` the first time. It is
+    built outside any inference mode, so a training step can save it for
+    its backward whoever asked first; no caller writes to it."""
+    with _HEAD_CONSTANTS_LOCK:
+        t = _HEAD_CONSTANTS.get(key)
+        if t is not None:
+            _HEAD_CONSTANTS.move_to_end(key)
+            HEAD_CONSTANT_HITS.count += 1
+            return t
+        with torch.inference_mode(False):
+            t = build()
+        _HEAD_CONSTANTS[key] = t
+        if len(_HEAD_CONSTANTS) > _HEAD_CONSTANTS_MAX:
+            _HEAD_CONSTANTS.popitem(last=False)
+        HEAD_CONSTANT_BUILDS.count += 1
+        return t
+
+
+def clear_head_constants() -> None:
+    """Forget every kept constant (the counters stay)."""
+    with _HEAD_CONSTANTS_LOCK:
+        _HEAD_CONSTANTS.clear()
+
+
 def _cat_uv(x: torch.Tensor, aspect: float, pad: int = 0) -> torch.Tensor:
     """NCHW x with the view-plane UV of its (unpadded) size appended as two
     channels; with `pad`, x is already edge-padded by `pad` and so is the
     UV."""
     h, w = x.shape[2] - 2 * pad, x.shape[3] - 2 * pad
-    uv = _view_plane_uv(h, w, aspect)
-    if pad:
-        uv = np.pad(uv, ((pad, pad), (pad, pad), (0, 0)), mode="edge")
-    uv = torch.from_numpy(uv).to(x.device, x.dtype).permute(2, 0, 1)
+
+    def build():
+        uv = _view_plane_uv(h, w, aspect)
+        if pad:
+            uv = np.pad(uv, ((pad, pad), (pad, pad), (0, 0)), mode="edge")
+        return torch.from_numpy(uv).to(x.device, x.dtype).permute(2, 0, 1)
+
+    uv = _head_constant(("uv", h, w, aspect, pad, x.dtype, x.device), build)
     return torch.cat([x, uv.expand(x.shape[0], -1, -1, -1)], dim=1)
 
 
@@ -185,8 +234,11 @@ def _resize_bilinear_pad(x: torch.Tensor, out_hw: tuple[int, int], pad: int = 1)
     `x.dtype`, as the JAX package computes it. Unlike `F.interpolate`,
     whose backward adds with atomics on CUDA, the products' backward is the
     same from run to run, so a training step repeats."""
-    gh, gw = (torch.as_tensor(_resize_matrix(n, o, pad), dtype=x.dtype, device=x.device)
-              for n, o in ((x.shape[2], out_hw[0]), (x.shape[3], out_hw[1])))
+    def taps(n, o):
+        return _head_constant(("taps", n, o, pad, x.dtype, x.device), lambda: torch.as_tensor(
+            _resize_matrix(n, o, pad), dtype=x.dtype, device=x.device))
+
+    gh, gw = taps(x.shape[2], out_hw[0]), taps(x.shape[3], out_hw[1])
     return torch.matmul(torch.matmul(gh, x), gw.t())
 
 

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the warm train step run with no host synchronisation.
 
 CUDA kernels have no CPU mode, so these tests carry the `cuda` marker and
 skip without a device. This file imports no JAX, so it also runs on a GPU
@@ -732,3 +733,37 @@ def test_scoring_card_matches_cpu():
     assert len(ca) > 256
     assert chip_smoke.score_card_vs_cpu(ca, cb) <= chip_smoke.SCORE_CARD_TOL
     assert evaluate.compare_coco3d(theirs, theirs, device="cuda")["mean_iou3d"] == 1.0
+
+
+@pytest.mark.cuda
+def test_warm_train_step_has_no_host_sync():
+    """One warm step of `make_train_step` (forward, loss, backward, AdamW)
+    on the tiny reference MoGe runs under `torch.cuda.set_sync_debug_mode
+    ("error")`: nothing in it waits for the card, and the head's
+    shape-only constants are all kept from the cold step (hits only)."""
+    _cuda_or_skip()
+    from labelany3d_tpu_torch.models import moge
+    from labelany3d_tpu_torch.parallel.train import init_train_state, make_train_step
+
+    torch.manual_seed(0)
+    model = moge.MoGeModel(moge.MoGeConfig.tiny_reference_test(), (64, 64)).cuda()
+    state, opt = init_train_state(model)
+    step = make_train_step(model, opt)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    images = torch.rand(2, 64, 64, 3, device="cuda", generator=g)
+    target = 1.0 + 4.0 * torch.rand(2, 64, 64, device="cuda", generator=g)
+    valid = torch.rand(2, 64, 64, device="cuda", generator=g) > 0.1
+    state, _ = step(state, images, target, valid)  # cold: builds the constants
+    torch.cuda.synchronize()
+    builds, hits = moge.HEAD_CONSTANT_BUILDS.count, moge.HEAD_CONSTANT_HITS.count
+    launches = port.KERNEL_LAUNCHES.count
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, loss = step(state, images, target, valid)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert moge.HEAD_CONSTANT_BUILDS.count == builds
+    assert moge.HEAD_CONSTANT_HITS.count - hits == 5
+    assert port.KERNEL_LAUNCHES.count - launches == 2  # K1 ran in both blocks
+    assert state.step == 2 and torch.isfinite(loss).item()

@@ -11,10 +11,14 @@ from a seed whose point maps recover a positive focal at both shapes: where
 random maps make the focal degenerate, the 1-D solve is ill-conditioned and
 compares nothing. The view-plane UV field is held at 1e-5
 absolute, the head's resize with its edge pad at 1e-5 absolute plus 1e-5
-relative.
+relative. The head keeps those shape-only constants once built
+(`moge._head_constant`): kept and fresh ones, and the model's outputs and
+gradients with the constants kept or rebuilt, are held bit for bit.
 """
 
 import dataclasses
+import sys
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -101,3 +105,157 @@ def test_reference_head_parameter_names():
     assert {"project0", "project1", "up0_deconv", "up1_deconv", "up0_conv", "up0_res0",
             "out0_conv_in", "out0_conv_out", "out1_conv_in", "out1_conv_out"} <= names
     assert {n.split(".")[0] for n, _ in tm.head.named_parameters()} == names
+
+
+def _fresh_uv(h, w, aspect, pad, dtype):
+    uv = moge._view_plane_uv(h, w, aspect)
+    if pad:
+        uv = np.pad(uv, ((pad, pad), (pad, pad), (0, 0)), mode="edge")
+    return torch.from_numpy(uv).to(dtype).permute(2, 0, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw, pad", [((37, 37), 0), ((12, 20), 0), ((37, 37), 1), ((48, 64), 1)])
+def test_cached_uv_plane_is_the_fresh_one(hw, pad, dtype):
+    """The kept UV plane, cold and warm, equals one built afresh bit for bit."""
+    moge.clear_head_constants()
+    h, w = hw
+    aspect = w / h
+    x = torch.randn(2, 3, h + 2 * pad, w + 2 * pad).to(dtype)
+    want = _fresh_uv(h, w, aspect, pad, dtype)
+    for _ in range(2):
+        got = moge._cat_uv(x, aspect, pad=pad)
+        assert got.dtype == dtype and got.shape == (2, 5, h + 2 * pad, w + 2 * pad)
+        assert torch.equal(got[:, :3], x)
+        assert torch.equal(got[:, 3:], want.expand(2, -1, -1, -1))
+    kept = moge._HEAD_CONSTANTS[("uv", h, w, aspect, pad, dtype, x.device)]
+    assert torch.equal(kept, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("in_hw, out_hw", [((8, 8), (32, 32)), ((12, 16), (48, 64)),
+                                           ((148, 148), (518, 518)), ((36, 20), (50, 70))])
+def test_cached_tap_matrices_are_the_fresh_ones(in_hw, out_hw, dtype):
+    """The kept tap matrices equal fresh ones bit for bit, and so does the
+    resize made with them, cold and warm."""
+    moge.clear_head_constants()
+    x = torch.randn(2, 3, *in_hw).to(dtype)
+    fresh = [torch.as_tensor(moge._resize_matrix(n, o, 1), dtype=dtype)
+             for n, o in zip(in_hw, out_hw)]
+    want = torch.matmul(torch.matmul(fresh[0], x), fresh[1].t())
+    for _ in range(2):
+        assert torch.equal(moge._resize_bilinear_pad(x, out_hw), want)
+    for (n, o), g in zip(zip(in_hw, out_hw), fresh):
+        assert torch.equal(moge._HEAD_CONSTANTS[("taps", n, o, 1, dtype, x.device)], g)
+
+
+def _tiny_reference_model(hw):
+    torch.manual_seed(0)
+    return moge.MoGeModel(moge.MoGeConfig.tiny_reference_test(), hw).float()
+
+
+@pytest.mark.parametrize("hw", [(32, 32), (48, 64)])
+def test_head_constants_build_once_a_key_then_only_hit(hw):
+    """One build for each distinct key, then hits only: a forward of the
+    reference head asks for one UV plane a level, one padded plane at the
+    image size and two tap matrices (one key when the image is square)."""
+    cfg = moge.MoGeConfig.tiny_reference_test()
+    tm = _tiny_reference_model(hw).eval()
+    x = torch.rand(1, *hw, 3)
+    moge.clear_head_constants()
+    builds, hits = moge.HEAD_CONSTANT_BUILDS.count, moge.HEAD_CONSTANT_HITS.count
+    asks = len(cfg.dim_upsample) + 1 + 2
+    keys = asks - (1 if hw[0] == hw[1] else 0)
+    with torch.no_grad():
+        tm(x)
+    assert moge.HEAD_CONSTANT_BUILDS.count - builds == keys
+    assert moge.HEAD_CONSTANT_HITS.count - hits == asks - keys
+    assert len(moge._HEAD_CONSTANTS) == keys
+    for n in range(1, 4):
+        with torch.no_grad():
+            tm(x)
+        assert moge.HEAD_CONSTANT_BUILDS.count - builds == keys
+        assert moge.HEAD_CONSTANT_HITS.count - hits == asks - keys + n * asks
+    moge.clear_head_constants()
+    assert len(moge._HEAD_CONSTANTS) == 0
+
+
+def test_head_constants_stay_bounded():
+    moge.clear_head_constants()
+    for n in range(moge._HEAD_CONSTANTS_MAX + 10):
+        moge._resize_bilinear_pad(torch.zeros(1, 1, 2, 2 + n), (4, 4))
+    assert len(moge._HEAD_CONSTANTS) == moge._HEAD_CONSTANTS_MAX
+    assert ("taps", 2, 4, 1, torch.float32, torch.device("cpu")) in moge._HEAD_CONSTANTS
+
+
+def test_head_constants_shared_by_threads():
+    """Threads asking for the same few keys at once: each key is built once,
+    and every call is counted as a build or a hit."""
+    moge.clear_head_constants()
+    builds, hits = moge.HEAD_CONSTANT_BUILDS.count, moge.HEAD_CONSTANT_HITS.count
+    shapes = [(2, 3 + k) for k in range(4)]
+    calls, workers = 50, 16
+    errors = []
+
+    def work():
+        try:
+            for i in range(calls):
+                moge._cat_uv(torch.zeros(1, 1, *shapes[i % len(shapes)]), 1.5)
+        except Exception as e:  # noqa: BLE001 - reported by the main thread
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(workers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert moge.HEAD_CONSTANT_BUILDS.count - builds == len(shapes)
+    assert moge.HEAD_CONSTANT_HITS.count - hits == calls * workers - len(shapes)
+
+
+@pytest.mark.parametrize("hw", [(32, 32), (48, 64)])
+def test_outputs_and_gradients_same_cold_and_warm(hw):
+    """The tiny reference MoGe's outputs and gradients are bit-identical
+    with the constants rebuilt before every call and with them kept."""
+    tm = _tiny_reference_model(hw)
+    x = torch.rand(2, *hw, 3, generator=torch.Generator().manual_seed(1))
+
+    def run(cold):
+        if cold:
+            moge.clear_head_constants()
+        tm.zero_grad(set_to_none=True)
+        out = tm(x)
+        (out["points"].square().mean() + out["mask"].mean()).backward()
+        return ({k: v.detach().clone() for k, v in out.items()},
+                {n: p.grad.clone() for n, p in tm.named_parameters() if p.grad is not None})
+
+    cold_out, cold_grad = run(True)
+    for _ in range(2):
+        warm_out, warm_grad = run(False)
+        for k in cold_out:
+            assert torch.equal(warm_out[k], cold_out[k]), k
+        assert warm_grad.keys() == cold_grad.keys() and cold_grad
+        for n in cold_grad:
+            assert torch.equal(warm_grad[n], cold_grad[n]), n
+
+
+def test_constants_built_in_inference_mode_serve_a_training_step():
+    """A constant first asked for under `torch.inference_mode` (the depth
+    backend) is a normal tensor, so a later training forward at the same
+    shape can save it for its backward. The constants are no buffers."""
+    tm = _tiny_reference_model((32, 32))
+    x = torch.rand(1, 32, 32, 3)
+    moge.clear_head_constants()
+    names = list(tm.state_dict())
+    with torch.inference_mode():
+        tm(x)
+    assert not any(t.is_inference() for t in moge._HEAD_CONSTANTS.values())
+    tm(x)["points"].sum().backward()
+    assert tm.head.up0_deconv.weight.grad is not None
+    assert moge._HEAD_CONSTANTS and list(tm.state_dict()) == names
