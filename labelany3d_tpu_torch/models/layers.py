@@ -33,6 +33,16 @@ class Dense(nn.Linear):
         d = self.compute_dtype
         return F.linear(x.to(d), self.weight.to(d), _cast(self.bias, d))
 
+    @staticmethod
+    def stacked(denses, x: torch.Tensor) -> torch.Tensor:
+        """`forward` of each of `denses` over its slice of x (S, ..., in), as
+        one batched product: the S weights stacked, then cast as `forward`
+        casts them."""
+        d = denses[0].compute_dtype
+        w = torch.stack([m.weight for m in denses]).to(d).transpose(1, 2)
+        b = torch.stack([m.bias for m in denses]).to(d)[:, None]
+        return torch.baddbmm(b, x.to(d).flatten(1, -2), w).unflatten(1, x.shape[1:-1])
+
 
 class Conv(nn.Conv2d):
     """NCHW convolution; `padding='same'` for odd kernels at stride 1 matches

@@ -23,7 +23,7 @@ from torch import nn
 
 from labelany3d_tpu_torch.models.layers import Conv, Dense, LayerNorm32, resize
 from labelany3d_tpu_torch.ops.attention import flash_sdpa, packed_sdpa
-from labelany3d_tpu_torch.ops.rope2d import apply_rope_2d, rope_2d_freqs
+from labelany3d_tpu_torch.ops.rope2d import apply_rope_2d, rope_2d_freqs, rope_pair
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +95,13 @@ class Mlp(nn.Module):
         # clamps inputs at 10; the port keeps the checkpoint's activation).
         return self.fc2(F.gelu(self.fc1(x)))
 
+    @staticmethod
+    def stacked(mlps, x: torch.Tensor) -> torch.Tensor:
+        """`forward` of each of `mlps` (GELU ones) over its slice of x
+        (S, ..., width), through `Dense.stacked`."""
+        h = Dense.stacked([m.fc1 for m in mlps], x)
+        return Dense.stacked([m.fc2 for m in mlps], F.gelu(h))
+
 
 class Attention(nn.Module):
     def __init__(self, cfg: ViTConfig):
@@ -109,11 +116,11 @@ class Attention(nn.Module):
         if rope is None:
             return self.proj(packed_sdpa(qkv, self.num_heads, n_real))
         b, n, w3 = qkv.shape
-        q, k, v = qkv.view(b, n, 3, self.num_heads, w3 // 3 // self.num_heads).unbind(2)
-        # RoPE in float32, then back to the compute dtype (vit.py:166-167).
-        q = apply_rope_2d(q.float(), *rope).to(self.dtype)
-        k = apply_rope_2d(k.float(), *rope).to(self.dtype)
-        return self.proj(flash_sdpa(q, k, v, segment_ids=seg).reshape(b, n, w3 // 3))
+        qk, v = qkv.view(b, n, 3, self.num_heads, w3 // 3 // self.num_heads).split([2, 1], 2)
+        # RoPE in float32, then back to the compute dtype (vit.py:166-167);
+        # q and k rotate as one tensor, and K2 reads them through strides.
+        q, k = apply_rope_2d(qk.float(), *rope_pair(rope)).to(self.dtype).unbind(2)
+        return self.proj(flash_sdpa(q, k, v.squeeze(2), segment_ids=seg).reshape(b, n, w3 // 3))
 
 
 class LayerScale(nn.Module):

@@ -33,6 +33,12 @@ def _rotate_half_sectioned(t: torch.Tensor) -> torch.Tensor:
     return torch.cat([-b, a, -d, c], dim=-1)
 
 
+def rope_pair(rope: tuple[torch.Tensor, torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables (..., N, D) shaped to rotate tokens (..., N, 2, H, D):
+    q and k stacked on a pair axis, rotated by one call."""
+    return tuple(t[..., :, None, None, :] for t in rope)
+
+
 def apply_rope_2d(tokens: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """tokens (..., N, H, D) or (..., N, D) with cos/sin (..., N, D), which
     broadcast over the heads axis."""

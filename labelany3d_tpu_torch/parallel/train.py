@@ -5,7 +5,9 @@ log-depth loss on MoGe's z channel, AdamW with f32 master weights (the
 layers compute in their config's dtype, bf16 for MoGe, and cast the f32
 parameters per call, as Flax's `param_dtype` f32 with `dtype` bf16 does),
 one step = forward, backward, update. K1 runs forward in every block; its
-backward is the plain `ops.attention.packed_sdpa_backward`.
+backward is the plain `ops.attention.packed_sdpa_backward`. The step takes
+its objective as an argument: the depth loss by default, the two-view
+matcher's pointmap and matching loss from `parallel/pair_loss.py`.
 
 Over a mesh (`init_train_state(..., mesh=)`, `prepare_batch`):
 
@@ -76,13 +78,21 @@ def depth_loss(pred_depth: torch.Tensor, target_depth: torch.Tensor,
 
 
 def init_train_state(model: nn.Module, generator: torch.Generator | None = None,
-                     learning_rate: float = 1e-4, mesh=None,
-                     params=None) -> tuple[TrainState, torch.optim.Optimizer]:
+                     learning_rate: float = 1e-4, mesh=None, params=None,
+                     fused: bool = False) -> tuple[TrainState, torch.optim.Optimizer]:
     """Parameters (a Flax-layout tree `params`, else Flax's initialisers
     from `generator`, else the model's as they are) kept in f32, sharded
     over `mesh`'s model axis when given, and AdamW over them with optax's
     defaults. Returns (state, optimizer), as the JAX package returns
-    (state, tx)."""
+    (state, tx).
+
+    `fused` takes torch's fused AdamW: the same update in one multi-tensor
+    kernel pass, where the default (foreach) launches a pass a term. The
+    default's host work at the step's end takes about as long as the
+    card's update, so the card waits on the host there; the fused update
+    leaves the host ahead, issuing the next step while the card updates.
+    The two round differently in the last bits of the moments and the
+    parameters."""
     from labelany3d_tpu_torch.models.weights import flax_to_state_dict, init_params_
 
     if params is not None:
@@ -92,7 +102,8 @@ def init_train_state(model: nn.Module, generator: torch.Generator | None = None,
     model.float().requires_grad_(True)
     if mesh is not None:
         shard_params(mesh, model)
-    opt = torch.optim.AdamW(model.parameters(), lr=learning_rate, **ADAMW_DEFAULTS)
+    opt = torch.optim.AdamW(model.parameters(), lr=learning_rate, fused=fused or None,
+                            **ADAMW_DEFAULTS)
     return TrainState(model, opt, 0, mesh), opt
 
 
@@ -112,36 +123,47 @@ def _sum_over_data(mesh, tensors: list[torch.Tensor]) -> None:
             offset += t.numel()
 
 
-def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer):
-    """step(state, images, target_depth, valid) -> (state, loss): one
-    AdamW step on the scale-invariant loss of `points[..., 2]`. Over a
-    mesh, give it this rank's rows (`prepare_batch`); the loss it returns
-    is the global one. It runs `model.forward` with grad enabled (never
-    `moge_infer` or an inference-mode backend). The step's gradients stay
-    on the parameters until the next step.
+def depth_objective(model: nn.Module, images, target_depth, valid,
+                    mesh=None) -> torch.Tensor:
+    """The default objective: the scale-invariant loss of `model(images)
+    ["points"][..., 2]` against `target_depth` over `valid`. Over `mesh`,
+    the three sums are all-reduced over the data group first, the other
+    ranks' as constants: each rank differentiates the global loss through
+    its own rows."""
+    pred = model(images)["points"][..., 2]
+    sums = depth_sums(pred, target_depth, valid)
+    if mesh is not None:
+        total = sums.detach().clone()
+        dist.all_reduce(total, group=mesh.get_group("data"))
+        sums = sums + (total - sums.detach())
+    return loss_from_sums(sums)
+
+
+def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
+                    objective=depth_objective):
+    """step(state, *batch) -> (state, loss): one AdamW step on
+    `objective(model, *batch, mesh=state.mesh)`, a 0-d float32 loss (the
+    default takes (images, target_depth, valid)). Over a mesh, give it this
+    rank's rows (`prepare_batch`): the objective returns the global loss,
+    differentiated through this rank's rows only, and the gradients are
+    summed over the data axis. It runs `model.forward` with grad enabled
+    (never `moge_infer` or an inference-mode backend). The step's gradients
+    stay on the parameters until the next step.
 
     Its spans (`utils/profiling.py::annotate`, unit `state.step` before
-    the step): `train.step` around `train.forward` (the model, the loss
-    sums and their all-reduce, the loss), `train.backward`,
+    the step): `train.step` around `train.forward` (the objective: the
+    model, the loss and any all-reduce it needs), `train.backward`,
     `train.grad_sum` (only where the data axis is over 1) and
     `train.optimizer` (the zero gradients of unused parameters, AdamW)."""
 
-    def step(state: TrainState, images, target_depth, valid):
+    def step(state: TrainState, *batch):
         mesh = state.mesh
         dp = 1 if mesh is None else axis_size(mesh, "data")
         with annotate("train.step", unit=state.step):
             optimizer.zero_grad(set_to_none=True)
             with torch.enable_grad():
                 with annotate("train.forward"):
-                    pred = model(images)["points"][..., 2]
-                    sums = depth_sums(pred, target_depth, valid)
-                    if mesh is not None:
-                        # The other ranks' sums as constants: each rank
-                        # differentiates the global loss through its own rows.
-                        total = sums.detach().clone()
-                        dist.all_reduce(total, group=mesh.get_group("data"))
-                        sums = sums + (total - sums.detach())
-                    loss = loss_from_sums(sums)
+                    loss = objective(model, *batch, mesh=mesh)
                 with annotate("train.backward"):
                     loss.backward()
             if dp > 1:

@@ -1,0 +1,11 @@
+"""The device time of the matcher's shared encoder over both views of every
+pair, in the step's forward, in the MASt3R train step (ms): the median,
+over the traced window's steps, of the time between the CUDA events the
+program records at the edges of its `matcher.encoder` span
+(`models/matcher.py::TwoViewMatcher.forward`)."""
+
+from common import program_spans
+
+
+def read(ctx):
+    return program_spans.device_ms(ctx.win, "matcher.encoder")

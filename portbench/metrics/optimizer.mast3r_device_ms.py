@@ -1,0 +1,11 @@
+"""The device time of a step's update, the zero gradients of unused parameters
+and AdamW, in the MASt3R train step (ms): the median, over the traced
+window's steps, of the time between the CUDA events the program records at
+the edges of its `train.optimizer` span
+(`parallel/train.py::make_train_step`)."""
+
+from common import program_spans
+
+
+def read(ctx):
+    return program_spans.device_ms(ctx.win, "train.optimizer")

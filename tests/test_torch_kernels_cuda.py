@@ -767,3 +767,49 @@ def test_warm_train_step_has_no_host_sync():
     assert moge.HEAD_CONSTANT_HITS.count - hits == 5
     assert port.KERNEL_LAUNCHES.count - launches == 2  # K1 ran in both blocks
     assert state.step == 2 and torch.isfinite(loss).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_warm_mast3r_train_step_has_no_host_sync(fused):
+    """One warm step of `make_train_step` with the two-view pair objective
+    (`parallel/pair_loss.py`: the matcher, the pointmap and matching
+    losses, backward, AdamW foreach or fused) on the tiny MASt3R layout
+    runs under `torch.cuda.set_sync_debug_mode("error")`, and K2 runs
+    forward and backward in every attention: the encoder's blocks and each
+    decoder depth's self- and cross-attention, both streams in one call.
+    The decoder takes one head of 32 (K2's smallest head dim) in place of
+    the tiny config's two of 16."""
+    _cuda_or_skip()
+    import dataclasses
+
+    from labelany3d_tpu_torch.models import matcher
+    from labelany3d_tpu_torch.parallel.pair_loss import pair_objective
+    from labelany3d_tpu_torch.parallel.train import init_train_state, make_train_step
+
+    torch.manual_seed(0)
+    cfg = dataclasses.replace(matcher.MatcherConfig.tiny_catmlpdpt_test(), dec_heads=1)
+    model = matcher.TwoViewMatcher(cfg, (4, 4)).cuda()
+    state, opt = init_train_state(model, fused=fused)
+    step = make_train_step(model, opt, objective=pair_objective)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    p, s, m = 2, 64, 16
+    imgs = [torch.rand(p, s, s, 3, device="cuda", generator=g) for _ in range(2)]
+    pts = [1.0 + torch.rand(p, s, s, 3, device="cuda", generator=g) for _ in range(2)]
+    valid = [torch.rand(p, s, s, device="cuda", generator=g) > 0.1 for _ in range(2)]
+    corr = [torch.randperm(s * s, device="cuda", generator=g)[:m].expand(p, m).contiguous()
+            for _ in range(2)]
+    batch = (*imgs, *pts, *valid, *corr)
+    state, _ = step(state, *batch)  # cold
+    torch.cuda.synchronize()
+    fwd, bwd = port.FLASH_LAUNCHES.count, port.FLASH_BACKWARD_LAUNCHES.count
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, loss = step(state, *batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    calls = cfg.encoder.depth + 2 * cfg.dec_depth
+    assert port.FLASH_LAUNCHES.count - fwd == calls
+    assert port.FLASH_BACKWARD_LAUNCHES.count - bwd == calls
+    assert state.step == 2 and torch.isfinite(loss).item()
